@@ -1,0 +1,263 @@
+"""Continuous batching for the generation engine.
+
+Counterpart of ``ray_tpu/llm/continuous.py``: late requests JOIN a
+running decode batch (a free KV-cache slot is prefilled while the other
+slots keep decoding) and slots are reused the moment a stream finishes
+(EOS / token budget). The cache keeps a fixed shape; slot occupancy
+changes never change it.
+
+Driven by a single decode thread per engine, which runs under
+``torch.inference_mode``. Thread-safe ``submit()`` returns an iterator of
+decoded text pieces.
+"""
+
+from __future__ import annotations
+
+import codecs
+import queue
+import threading
+from typing import Iterator, List, Optional
+
+import numpy as np
+import torch
+
+from .._device import DeviceLike, resolve_device
+from ..models.convert import params_to
+from ..models.generate import _bucket_len, init_cache, make_continuous_fns
+from ..models.gpt import gpt_init
+from .serving import ByteTokenizer, default_engine_config
+
+_SENTINEL = object()
+
+
+class _Request:
+    __slots__ = ("ids", "max_new", "temperature", "out", "stop_token",
+                 "seed")
+
+    def __init__(self, ids, max_new, temperature, stop_token, seed):
+        self.ids = ids
+        self.max_new = max_new
+        self.temperature = temperature
+        self.stop_token = stop_token
+        self.seed = seed
+        self.out: "queue.Queue" = queue.Queue()
+
+
+class _Slot:
+    __slots__ = ("req", "pos", "emitted", "rng", "last_token")
+
+    def __init__(self, req: _Request, pos: int, rng):
+        self.req = req
+        self.pos = pos          # next decode position (== tokens so far)
+        self.emitted = 0
+        self.rng = rng
+        self.last_token = 0
+
+
+class ContinuousBatchingEngine:
+    """Shared-batch KV-cache decode with slot insertion/reuse."""
+
+    def __init__(self, cfg=None, params=None, tokenizer=None,
+                 max_batch: int = 8, max_len: Optional[int] = None,
+                 seed: int = 0, device: DeviceLike = None):
+        self.device = resolve_device(device)
+        self.tokenizer = tokenizer or ByteTokenizer()
+        self.cfg = cfg or default_engine_config()
+        if params is None:
+            params = gpt_init(self.cfg, torch.Generator().manual_seed(seed),
+                              self.device)
+        self.params = params_to(params, self.device)
+        self.max_batch = int(max_batch)
+        self.max_len = int(max_len or self.cfg.max_seq_len)
+        self._prefill, self._decode = make_continuous_fns(
+            self.cfg, self.max_len, self.max_batch)
+        with torch.inference_mode():
+            self._cache = init_cache(self.cfg, self.max_batch, self.max_len,
+                                     self.device)
+        self._slots: List[Optional[_Slot]] = [None] * self.max_batch
+        self._pending: "queue.Queue[_Request]" = queue.Queue()
+        self._lock = threading.Lock()
+        self._wake = threading.Event()
+        self._thread: Optional[threading.Thread] = None
+        self._closed = False
+        # Step counter: tests assert late requests really joined a RUNNING
+        # batch (their first token decoded at a step > 0 while another
+        # slot was mid-stream).
+        self.steps = 0
+
+    # -- public api --------------------------------------------------------
+    def submit(self, prompt: str, max_new_tokens: int = 32,
+               temperature: float = 0.0,
+               stop_token: Optional[int] = None,
+               seed: int = 0) -> Iterator[str]:
+        """Enqueue a request; returns an iterator of decoded text pieces.
+        The request joins the running batch as soon as a slot frees (or
+        immediately when one is open)."""
+        encoded = self.tokenizer.encode(prompt)
+        keep = self.max_len - max(1, min(max_new_tokens, 16))
+        if len(encoded) > keep:
+            encoded = encoded[-keep:]
+        budget = min(max_new_tokens, self.max_len - len(encoded))
+        req = _Request(encoded, max(1, budget), float(temperature),
+                       stop_token, seed)
+        with self._lock:
+            if self._closed:
+                raise RuntimeError("engine closed")
+            self._pending.put(req)
+            if self._thread is None:
+                self._thread = threading.Thread(
+                    target=self._loop, daemon=True, name="cb-decode")
+                self._thread.start()
+        self._wake.set()
+
+        def _stream():
+            decoder = codecs.getincrementaldecoder("utf-8")(
+                errors="replace")
+            while True:
+                item = req.out.get()
+                if item is _SENTINEL:
+                    break
+                if isinstance(item, BaseException):
+                    raise item
+                if 0 <= item < 256:
+                    piece = decoder.decode(bytes([item]))
+                    if piece:
+                        yield piece
+            tail = decoder.decode(b"", final=True)
+            if tail:
+                yield tail
+        return _stream()
+
+    def complete(self, prompt: str, max_new_tokens: int = 32,
+                 temperature: float = 0.0, **kw) -> str:
+        return "".join(self.submit(prompt, max_new_tokens, temperature,
+                                   **kw))
+
+    def close(self):
+        with self._lock:
+            self._closed = True
+        self._wake.set()
+
+    # -- decode loop -------------------------------------------------------
+    def _admit(self) -> None:
+        """Prefill pending requests into free slots (called between decode
+        steps: this is the 'late request joins a running batch' moment)."""
+        for i in range(self.max_batch):
+            if self._slots[i] is not None:
+                continue
+            try:
+                req = self._pending.get_nowait()
+            except queue.Empty:
+                return
+            true_len = len(req.ids)
+            bucket = min(_bucket_len(true_len, self.max_len), self.max_len)
+            padded = req.ids + [0] * (bucket - true_len)
+            tokens = torch.tensor([padded], dtype=torch.long,
+                                  device=self.device)
+            try:
+                last, self._cache = self._prefill(
+                    self.params, tokens, self._cache, i, true_len)
+            except BaseException as e:  # noqa: BLE001
+                # The request is already popped from _pending and holds no
+                # slot: _fail_all can't see it, so a prefill failure (OOM,
+                # a kernel error) must terminate ITS stream here or
+                # submit()'s consumer blocks forever on req.out.
+                req.out.put(e)
+                req.out.put(_SENTINEL)
+                raise
+            rng = np.random.default_rng(req.seed)
+            slot = _Slot(req, true_len, rng)
+            self._slots[i] = slot
+            self._emit(i, last.cpu().numpy())
+
+    def _emit(self, i: int, logits: np.ndarray) -> None:
+        """Sample one token for slot i from host-side logits; push it to the
+        request's stream; retire the slot at EOS/budget. Host-side sampling
+        keeps per-request temperature/seed out of the device step.
+
+        slot.pos is where the just-sampled token WILL be written by the
+        next decode step (== tokens currently in the cache); the loop
+        advances it after the decode that consumes the token."""
+        slot = self._slots[i]
+        req = slot.req
+        if req.temperature <= 0.0:
+            token = int(np.argmax(logits))
+        else:
+            z = logits.astype(np.float64) / req.temperature
+            z -= z.max()
+            p = np.exp(z)
+            p /= p.sum()
+            token = int(slot.rng.choice(len(p), p=p))
+        req.out.put(token)
+        slot.emitted += 1
+        slot.last_token = token
+        done = (slot.emitted >= req.max_new
+                or (req.stop_token is not None
+                    and token == req.stop_token)
+                or slot.pos >= self.max_len)
+        if done:
+            req.out.put(_SENTINEL)
+            self._slots[i] = None   # slot free: next _admit reuses it
+
+    def _fail_all(self, exc: Optional[BaseException]) -> None:
+        """Terminate every active and pending stream; exc is re-raised in
+        consumers when given, else the streams just end."""
+        for i, s in enumerate(self._slots):
+            if s is not None:
+                if exc is not None:
+                    s.req.out.put(exc)
+                s.req.out.put(_SENTINEL)
+                self._slots[i] = None
+        while True:
+            try:
+                req = self._pending.get_nowait()
+            except queue.Empty:
+                return
+            if exc is not None:
+                req.out.put(exc)
+            req.out.put(_SENTINEL)
+
+    def _loop(self) -> None:
+        try:
+            with torch.inference_mode():
+                self._run()
+        except BaseException as e:  # noqa: BLE001
+            # The engine is dead: close it so later submit() raises instead
+            # of enqueueing into a loop that no longer runs, and fail EVERY
+            # stream (active and still pending) with the error (a pending
+            # request ending silently would look like an empty completion).
+            with self._lock:
+                self._closed = True
+                self._fail_all(e)
+
+    def _run(self) -> None:
+        while True:
+            self._admit()
+            active = [i for i in range(self.max_batch)
+                      if self._slots[i] is not None]
+            if not active:
+                with self._lock:
+                    if self._closed:
+                        # Atomic with submit()'s check+enqueue: drain
+                        # anything that raced in so no consumer blocks.
+                        self._fail_all(RuntimeError("engine closed"))
+                        return
+                self._wake.wait(timeout=0.5)
+                self._wake.clear()
+                continue
+            tokens = np.zeros(self.max_batch, np.int64)
+            pos = np.zeros(self.max_batch, np.int64)
+            for i in active:
+                slot = self._slots[i]
+                tokens[i] = slot.last_token
+                pos[i] = slot.pos  # where this token is written
+            logits, self._cache = self._decode(
+                self.params, torch.from_numpy(tokens).to(self.device),
+                torch.from_numpy(pos).to(self.device), self._cache)
+            self.steps += 1
+            logits_np = logits.cpu().numpy()
+            for i in active:
+                slot = self._slots[i]
+                if slot is not None:
+                    slot.pos += 1  # the decode wrote at old pos
+                    self._emit(i, logits_np[i])
