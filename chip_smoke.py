@@ -7,24 +7,38 @@ Run from the root of a checkout, with one CUDA card visible:
 
 It builds the port's kernels from ``ray_tpu_torch/ops/csrc`` (nvcc,
 sm_90a), holds each kernel against its plain PyTorch version on the card,
-drives the port's serving paths at GPT-2-small width, and prints one JSON
-line per phase:
+drives the port's serving paths and its train step at GPT-2-small width,
+and prints one JSON line per phase:
 
-  1. device   the card (nvidia-smi name and power limit), torch and CUDA
-  2. build    kernel build seconds and ptxas's register and shared
-              memory report; the full compiler output goes to
-              ray_tpu_torch/_build/build_log.txt
-  3. compare  flash_fwd vs mha_reference at the test and model shapes,
-              with its lse; kernel, plain and SDPA times at the two
-              model shapes
-  4. slice    GPTInferenceStage (the batch serving path that runs the
-              kernel): 16 prompts bucketed to T=1024, 8 greedy steps,
-              the kernel's launches counted over exactly that run; its
-              first-step logits against the port on the CPU
-  5. online   LLMEngine and ContinuousBatchingEngine at GPT-2-small
-              width: time to first token, decode tokens/s, and the KV-cache
-              logits against a full forward
-  6. kernels  one entry per kernel: launches, error, times and bound
+  1. device         the card (nvidia-smi name and power limit), torch, CUDA
+  2. build          kernel build seconds and ptxas's register, spill and
+                    shared-memory report per kernel; the full compiler
+                    output goes to ray_tpu_torch/_build/build_log.txt
+  3. compare        flash_fwd (K1) vs mha_reference at the test and model
+                    shapes, with its lse; kernel, plain and SDPA times at
+                    the two model shapes
+  4. compare_bwd    flash_bwd_dq (K2) and flash_bwd_dkv (K3), through the
+                    autograd backward of flash_attention, vs
+                    flash_bwd_reference, and that reference vs autograd
+                    through mha_reference; kernel, plain and SDPA-backward
+                    times at the two model shapes
+  5. slice          GPTInferenceStage (the batch serving path that runs
+                    K1): 16 prompts bucketed to T=1024, 8 greedy steps,
+                    K1's launches counted over exactly that run; its
+                    first-step logits against the port on the CPU
+  6. online         LLMEngine and ContinuousBatchingEngine at GPT-2-small
+                    width: time to first token, decode tokens/s, and the
+                    KV-cache logits against a full forward
+  7. train          make_train_step(GPTConfig.gpt2_small()) at B=16,
+                    S=1024, bf16, remat on (the preset) and off: step ms,
+                    tokens/s, MFU, peak memory, the losses, and K1, K2, K3
+                    launches counted over exactly one step
+  8. train_vs_cpu   one step at GPT-2-small width and 2 layers, card vs
+                    CPU from the same weights: loss, every gradient, every
+                    param after AdamW (f32 at T=128, bf16 at ragged T=100)
+  9. train_profile  torch.profiler over one train step: device ms by
+                    group (K1, K2, K3 each a group) and the idle share
+ 10. kernels        one entry per kernel: launches, error, times and bound
 
 and, as its last line, {"ok": true, "device": {...}}. Any failed phase or
 comparison raises, so the script exits non-zero without the last line.
@@ -37,9 +51,11 @@ the card's name and power limit printed in phase 1.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -57,6 +73,18 @@ TOL_BF16_NORM = 2e-2
 # lse (f32) vs logsumexp of the plain f32 logits: the same products summed
 #   in another order, and the kernel's fast exp.
 TOL_LSE_ABS = 1e-3
+# Backward kernels (K2, K3) vs flash_bwd_reference, after dividing by
+#   max(1, max|ref|): f32 takes the JAX package's own band for its kernel
+#   gradients (tests/test_models_ops.py); bf16 rounds P and dS to bf16 in
+#   both, but a P or dS within rounding of a bf16 step can round the other
+#   way (the kernel's exp is the fast one), and each gradient is rounded
+#   to bf16 once: a few ulps of bf16 (2**-8 = 3.9e-3).
+TOL_BWD_F32_NORM = 6e-3
+TOL_BWD_BF16_NORM = 1e-2
+# flash_bwd_reference vs autograd through mha_reference, both f32, after
+#   dividing by max|ref|: the same products, the softmax through lse
+#   instead of its own normalization.
+TOL_BWD_REF_NORM = 1e-4
 # Model logits through 12 bf16 layers, card vs CPU or cached vs full
 #   forward, after dividing by max|ref|: every matmul output is rounded to
 #   bf16 on both sides, at different points (bf16 vs f32 of the same
@@ -108,13 +136,18 @@ def cuda_ms(fn, warmup: int = 3, iters: int = 20) -> float:
 
 
 def attention_bound(shape, dtype_bytes: int, causal: bool, peak: float,
-                    bw: float):
-    """(bound_ms, bound_by): q, k, v read once and o written once, against
-    the flops of QK^T and PV over the (causal) pairs this run computes."""
+                    bw: float, matmuls: int = 2, tensors: int = 4,
+                    rows: int = 0):
+    """(bound_ms, bound_by): ``tensors`` [B, H, S, D] read or written once
+    and ``rows`` f32 [B, H, S] read once, against the flops of ``matmuls``
+    products over the (causal) pairs this run computes. K1: QK^T and PV;
+    q, k, v read, o written. K2: 3 products; q, k, v, dO read, dq
+    written, lse and delta read. K3: 4 products; 4 read, dk and dv
+    written, lse and delta read."""
     b, h, s, d = shape
-    nbytes = 4 * b * h * s * d * dtype_bytes
+    nbytes = tensors * b * h * s * d * dtype_bytes + rows * b * h * s * 4
     pairs = s * (s + 1) // 2 if causal else s * s
-    flops = 4 * b * h * d * pairs
+    flops = 2 * matmuls * b * h * d * pairs
     t_bytes, t_ops = nbytes / bw, flops / peak
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
@@ -145,11 +178,42 @@ def phase_build():
     with open(os.path.join(_kernels.BUILD_DIR, "build_log.txt"), "w") as f:
         for name, rep in report.items():
             f.write(f"== {name} ({rep['seconds']:.1f} s)\n{rep['log']}\n")
-    ptxas = [line.strip() for rep in report.values()
-             for line in rep["log"].splitlines() if "registers" in line]
     emit("build", seconds=seconds,
-         kernels={n: r["seconds"] for n, r in report.items()},
-         ptxas=ptxas)
+         sources={n: r["seconds"] for n, r in report.items()},
+         ptxas=ptxas_report(rep["log"] for rep in report.values()))
+
+
+def ptxas_report(logs) -> dict:
+    """Registers, spills and shared memory per compiled kernel from
+    ``-Xptxas -v``, keyed by the kernel and its head_dim."""
+    out, name = {}, None
+    for log in logs:
+        for line in log.splitlines():
+            m = re.search(r"Function properties for (\S+)", line)
+            if m:
+                k = re.search(r"(flash_(?:fwd|bwd_dq|bwd_dkv)_(?:bf16|f32)"
+                              r"_kernel)ILi(\d+)E", m.group(1))
+                name = f"{k.group(1)}<{k.group(2)}>" if k else m.group(1)
+                out[name] = {}
+            elif name and "spill" in line:
+                out[name]["spill"] = line.strip()
+            elif name and "registers" in line:
+                out[name]["registers"] = line.split(":", 1)[-1].strip()
+    return out
+
+
+def _plain_lse(q, k, causal: bool, scale: float):
+    """logsumexp of the scaled, masked f32 logits (the forward's lse)."""
+    import torch
+
+    from ray_tpu_torch.ops.attention import DEFAULT_MASK_VALUE
+
+    s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
+    if causal:
+        mask = torch.ones(s.shape[-2:], dtype=torch.bool,
+                          device=s.device).tril()
+        s = torch.where(mask, s, DEFAULT_MASK_VALUE)
+    return torch.logsumexp(s, dim=-1)
 
 
 def phase_compare(peaks):
@@ -157,7 +221,7 @@ def phase_compare(peaks):
     import torch.nn.functional as F
 
     from ray_tpu_torch.ops import _kernels
-    from ray_tpu_torch.ops.attention import DEFAULT_MASK_VALUE, mha_reference
+    from ray_tpu_torch.ops.attention import mha_reference
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     cases = [
@@ -183,13 +247,7 @@ def phase_compare(peaks):
         out, lse = _kernels.flash_fwd(q, k, v, causal, scale, save_lse=True)
         out_nolse, none = _kernels.flash_fwd(q, k, v, causal, scale)
         ref = mha_reference(q, k, v, causal, scale)
-        logits = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
-        if causal:
-            mask = torch.ones(shape[2], shape[2], dtype=torch.bool,
-                              device="cuda").tril()
-            logits = torch.where(mask, logits, DEFAULT_MASK_VALUE)
-        lse_ref = torch.logsumexp(logits, dim=-1)
-        del logits
+        lse_ref = _plain_lse(q, k, causal, scale)
         torch.cuda.synchronize()
         abs_err = float((out.float() - ref.float()).abs().max())
         norm_err = abs_err / float(ref.float().abs().max())
@@ -303,34 +361,41 @@ def phase_slice():
          tol=TOL_MODEL_NORM, finite=bool(torch.isfinite(card).all()))
     check(bool(torch.isfinite(card).all()), "non-finite logits on the card")
     check(err <= TOL_MODEL_NORM, f"card vs CPU logits differ by {err}")
-    phase_profile(stage, batch)
+    profile_device(lambda: stage(batch), "profile",
+                   "GPTInferenceStage, gpt2_small, 16x1024, 8 steps")
     return launches
 
 
 def _kernel_group(name: str) -> str:
     low = name.lower()
-    if "flash_fwd" in low:
-        return "flash_fwd (this port)"
+    for kernel, group in (("flash_fwd", "K1 flash_fwd (this port)"),
+                          ("flash_bwd_dq", "K2 flash_bwd_dq (this port)"),
+                          ("flash_bwd_dkv", "K3 flash_bwd_dkv (this port)")):
+        if kernel in low:
+            return group
     if any(k in low for k in ("gemm", "nvjet", "xmma", "cutlass", "cublas")):
         return "matmul (cuBLAS)"
+    if "multi_tensor" in low or "foreach" in low or "adam" in low:
+        return "optimizer (AdamW)"
     if "reduce" in low or "softmax" in low or "norm" in low:
         return "reductions"
-    if "cat" in low or "copy" in low or "index" in low or "gather" in low:
+    if "cat" in low or "copy" in low or "index" in low or "gather" in low \
+            or "scatter" in low or "embedding" in low:
         return "copies and indexing"
     return "elementwise"
 
 
-def phase_profile(stage, batch):
-    """Device time by kernel over one slice run (8 greedy steps), and the
-    device's idle share of that run's wall time, from torch.profiler
-    (reported as it comes: an empty trace reads as no kernels)."""
+def profile_device(fn, phase: str, what: str):
+    """Device time by kernel and by group over one call of ``fn``, and the
+    device's idle share of its wall time, from torch.profiler (reported as
+    it comes: an empty trace reads as no kernels)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        stage(batch)
+        fn()
         wall = time.perf_counter() - t0
     kernels, groups = [], {}
     for ev in prof.key_averages():
@@ -344,7 +409,7 @@ def phase_profile(stage, batch):
         groups[group] = groups.get(group, 0.0) + us
     kernels.sort(reverse=True)
     busy_ms = sum(us for us, _, _ in kernels) / 1e3
-    emit("profile", what="GPTInferenceStage, gpt2_small, 16x1024, 8 steps",
+    emit(phase, what=what,
          wall_ms_profiled=wall * 1e3, device_busy_ms=busy_ms,
          device_idle_share=(1 - busy_ms / (wall * 1e3)) if kernels else None,
          groups_ms={g: us / 1e3 for g, us in sorted(
@@ -430,6 +495,277 @@ def phase_online():
     check(not ceng._thread.is_alive(), "decode thread did not stop")
 
 
+def _norm_err(out, ref, floor: float = 1.0) -> float:
+    return float((out.float() - ref.float()).abs().max()) / max(
+        floor, float(ref.float().abs().max()))
+
+
+def phase_compare_bwd(peaks):
+    """K2 and K3 through flash_attention's autograd backward against
+    flash_bwd_reference on the card; the reference against autograd
+    through mha_reference in f32; times at the two model shapes."""
+    import torch
+    import torch.nn.functional as F
+
+    from ray_tpu_torch.ops import _kernels
+    from ray_tpu_torch.ops.attention import (flash_attention,
+                                             flash_bwd_reference,
+                                             mha_reference)
+
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    f32, bf16 = torch.float32, torch.bfloat16
+    cases = [
+        ((1, 2, 256, 64), f32, True), ((1, 2, 256, 64), f32, False),
+        ((1, 2, 256, 64), bf16, True), ((1, 2, 256, 64), bf16, False),
+        ((3, 5, 128, 32), f32, True), ((3, 5, 128, 32), bf16, True),
+        ((2, 3, 200, 64), f32, True), ((2, 3, 200, 64), bf16, False),
+        ((2, 3, 200, 64), bf16, True),                # ragged S
+        ((2, 4, 128, 16), f32, True), ((2, 4, 128, 16), bf16, True),
+        ((2, 4, 256, 128), f32, True), ((2, 4, 256, 128), bf16, True),
+        ((16, 12, 1024, 64), bf16, True),   # GPT-2-small train step
+        ((8, 8, 2048, 128), bf16, True),    # llama bench shape
+    ]
+    timed = {(16, 12, 1024, 64), (8, 8, 2048, 128)}
+    results = {}
+    for shape, dtype, causal in cases:
+        q, k, v, do = (torch.randn(shape, generator=gen, device="cuda")
+                       .to(dtype) for _ in range(4))
+        scale = 1.0 / math.sqrt(shape[-1])
+        leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+        out = flash_attention(*leaves, causal, scale)
+        before = dict(_kernels.LAUNCHES)
+        grads = torch.autograd.grad(out, leaves, do)
+        ran = {n: _kernels.LAUNCHES[n] - before[n]
+               for n in ("flash_bwd_dq", "flash_bwd_dkv")}
+        o, lse = _kernels.flash_fwd(q, k, v, causal, scale, save_lse=True)
+        ref = flash_bwd_reference(q, k, v, o, lse, do, causal, scale)
+        torch.cuda.synchronize()
+        names = ("dq", "dk", "dv")
+        errs = {n: _norm_err(g, r) for n, g, r in zip(names, grads, ref)}
+        abs_errs = {n: float((g.float() - r.float()).abs().max())
+                    for n, g, r in zip(names, grads, ref)}
+        finite = all(bool(torch.isfinite(g).all()) for g in grads)
+        del out, grads, leaves
+
+        # The reference itself, in f32, against autograd through the
+        # plain forward: an independent check of the formulas.
+        q32, k32, v32, do32 = (x.float() for x in (q, k, v, do))
+        auto_leaves = [x.clone().requires_grad_() for x in (q32, k32, v32)]
+        auto = torch.autograd.grad(
+            mha_reference(*auto_leaves, causal, scale), auto_leaves, do32)
+        ref32 = flash_bwd_reference(
+            q32, k32, v32, mha_reference(q32, k32, v32, causal, scale),
+            _plain_lse(q32, k32, causal, scale), do32, causal, scale)
+        ref_errs = {n: _norm_err(r, a, 0.0)
+                    for n, r, a in zip(names, ref32, auto)}
+        del auto, auto_leaves, ref32
+
+        tol = TOL_BWD_F32_NORM if dtype == f32 else TOL_BWD_BF16_NORM
+        row = {"shape": list(shape), "dtype": str(dtype).split(".")[-1],
+               "causal": causal, "max_norm_err": errs,
+               "max_abs_err": abs_errs, "tol": tol,
+               "ref_vs_autograd_norm_err": ref_errs,
+               "ref_tol": TOL_BWD_REF_NORM, "launched": ran}
+        if tuple(shape) in timed:
+            delta = (do.float() * o.float()).sum(-1)
+            fl = peaks["bf16"] if dtype == bf16 else peaks["f32"]
+            size = q.element_size()
+            row["dq"] = dict(zip(("bound_ms", "bound_by"), attention_bound(
+                shape, size, causal, fl, peaks["bytes"], 3, 5, 2)))
+            row["dkv"] = dict(zip(("bound_ms", "bound_by"), attention_bound(
+                shape, size, causal, fl, peaks["bytes"], 4, 6, 2)))
+            row["dq"]["ms"] = cuda_ms(lambda: _kernels.flash_bwd_dq(
+                q, k, v, do, lse, delta, causal, scale))
+            row["dkv"]["ms"] = cuda_ms(lambda: _kernels.flash_bwd_dkv(
+                q, k, v, do, lse, delta, causal, scale))
+            # One plain call computes dq, dk and dv together.
+            row["plain_ms"] = cuda_ms(lambda: flash_bwd_reference(
+                q, k, v, o, lse, do, causal, scale), iters=5)
+            leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+            out = flash_attention(*leaves, causal, scale)
+            row["autograd_bwd_ms"] = cuda_ms(lambda: torch.autograd.grad(
+                out, leaves, do, retain_graph=True))
+            # SDPA's backward (dq, dk, dv together): timed, never called
+            # by the port.
+            lib = [x.clone().requires_grad_() for x in (q, k, v)]
+            out_lib = F.scaled_dot_product_attention(*lib, is_causal=causal,
+                                                     scale=scale)
+            row["library_ms"] = cuda_ms(lambda: torch.autograd.grad(
+                out_lib, lib, do, retain_graph=True))
+            del out, leaves, out_lib, lib, delta
+        emit("compare_bwd", **row)
+        check(finite, f"non-finite backward kernel output at {shape}")
+        check(ran == {"flash_bwd_dq": 1, "flash_bwd_dkv": 1},
+              f"the backward did not launch K2 and K3 once each: {ran}")
+        check(max(errs.values()) <= tol,
+              f"K2/K3 disagree with flash_bwd_reference at {row}")
+        check(max(ref_errs.values()) <= TOL_BWD_REF_NORM,
+              f"flash_bwd_reference disagrees with autograd at {row}")
+        results[(tuple(shape), row["dtype"], causal)] = row
+        del q, k, v, do, o, lse, ref
+        torch.cuda.empty_cache()
+    return results
+
+
+def phase_train(peaks):
+    """make_train_step(GPTConfig.gpt2_small()) at B=16, S=1024 on the
+    card: 1 warm-up step, then 5 timed steps, each closed by fetching the
+    loss; the kernels' launches counted over exactly the first timed
+    step. Remat on (the preset), then off (what bench.py's bench_tpu
+    times)."""
+    import numpy as np
+    import torch
+
+    from ray_tpu_torch.models import GPTConfig, make_train_step
+    from ray_tpu_torch.models.convert import tree_leaves
+    from ray_tpu_torch.ops import _kernels
+
+    results = {}
+    b, s = 16, 1024
+    for remat in (True, False):
+        cfg = dataclasses.replace(GPTConfig.gpt2_small(), remat=remat)
+        init_state, train_step = make_train_step(cfg)
+        state = init_state(torch.Generator(device="cuda").manual_seed(0))
+        n_params = sum(p.numel() for p in tree_leaves(state["params"]))
+        tokens = np.random.default_rng(0).integers(
+            0, cfg.vocab_size, (b, s), dtype=np.int64)
+        batch = (torch.from_numpy(tokens).cuda(),
+                 torch.from_numpy(np.roll(tokens, -1, 1)).cuda())
+        state, m = train_step(state, batch)  # warm-up
+        losses = [float(m["loss"])]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        steps_s = []
+        for i in range(5):
+            if i == 0:
+                for name in _kernels.LAUNCHES:
+                    _kernels.LAUNCHES[name] = 0
+            t0 = time.perf_counter()
+            state, m = train_step(state, batch)
+            losses.append(float(m["loss"]))  # the fetch ends the step
+            steps_s.append(time.perf_counter() - t0)
+            if i == 0:
+                launches = dict(_kernels.LAUNCHES)
+        step = statistics.median(steps_s)
+        layers = cfg.n_layers
+        # K1 runs in every layer's forward and, under remat, again when
+        # the checkpointed block is recomputed in the backward.
+        expected = {"flash_fwd": layers * (2 if remat else 1),
+                    "flash_bwd_dq": layers, "flash_bwd_dkv": layers}
+        row = {"config": "gpt2_small", "remat": remat, "batch": b,
+               "seq": s, "dtype": "bfloat16", "params": n_params,
+               "step_ms_runs": [t * 1e3 for t in steps_s],
+               "step_ms_median": step * 1e3,
+               "tokens_per_s": b * s / step,
+               "mfu": 6 * n_params * b * s / step / peaks["bf16"],
+               "mfu_peak": f"bf16 {peaks['bf16']:.4g} FLOP/s "
+                           f"({peaks['matched']})",
+               "max_memory_allocated_gb":
+                   torch.cuda.max_memory_allocated() / 1e9,
+               "losses": losses, "launches": launches,
+               "expected_launches": expected}
+        emit("train", **row)
+        check(all(math.isfinite(x) for x in losses), f"loss {losses}")
+        check(losses[-1] < losses[0], f"loss did not fall: {losses}")
+        check(launches == expected,
+              f"launches over one step {launches}, want {expected}")
+        results[remat] = row
+        del state, batch, m
+        torch.cuda.empty_cache()
+    return results
+
+
+def phase_train_vs_cpu():
+    """One train step at GPT-2-small width with 2 layers, on the card and
+    on the CPU from the same weights and batch: the loss, every gradient
+    and every param after the AdamW update."""
+    import numpy as np
+    import torch
+
+    from ray_tpu_torch.models import GPTConfig, gpt_init, make_train_step
+    from ray_tpu_torch.models.convert import params_to, tree_leaves
+
+    # (dtype, T, tolerances), normalized by each leaf's max |cpu|:
+    # f32: the same math summed in other orders on two devices. The
+    #   gradients agree to rounding; AdamW's first step moves a weight by
+    #   about lr * sign(g) = 3e-4 whatever |g| is, so a gradient within
+    #   rounding of 0 can move its weight by up to 2 lr: the param band is
+    #   lr-scale, not rounding-scale.
+    # bf16 at a ragged T: every matmul output and each gradient is
+    #   rounded to bf16 at other points; the params are bf16, whose ulp
+    #   (2**-8 of the value) exceeds a step of 3e-4 above ~0.08, so
+    #   whether a weight moves turns on rounding.
+    runs = [("float32", 128, {"loss": 1e-5, "grads": 1e-3,
+                              "params": 1e-2}),
+            ("bfloat16", 100, {"loss": 1e-2, "grads": 5e-2,
+                               "params": 3e-2})]
+    for dtype, t, tol in runs:
+        cfg = dataclasses.replace(GPTConfig.gpt2_small(), n_layers=2,
+                                  dtype=getattr(torch, dtype))
+        params = gpt_init(cfg, torch.Generator().manual_seed(2), "cpu")
+        tokens = np.random.default_rng(2).integers(
+            0, cfg.vocab_size, (2, t + 1), dtype=np.int64)
+        batch = (torch.from_numpy(tokens[:, :-1]),
+                 torch.from_numpy(tokens[:, 1:]))
+        states = {}
+        for dev in ("cuda", "cpu"):
+            init_state, train_step = make_train_step(cfg, device=dev)
+            # params_to copies to the card; the CPU state takes the
+            # originals, after the card's copy is made.
+            state = init_state(params=params_to(params, dev))
+            state, m = train_step(state, batch)
+            states[dev] = (state, float(m["loss"]))
+        (card, loss_card), (cpu, loss_cpu) = states["cuda"], states["cpu"]
+        leaves_card = tree_leaves(card["params"])
+        leaves_cpu = tree_leaves(cpu["params"])
+        grads = max(_norm_err(a.grad.cpu(), b.grad, 0.0)
+                    for a, b in zip(leaves_card, leaves_cpu))
+        after = max(_norm_err(a.detach().cpu(), b.detach(), 0.0)
+                    for a, b in zip(leaves_card, leaves_cpu))
+        loss_err = abs(loss_card - loss_cpu) / abs(loss_cpu)
+        finite = all(bool(torch.isfinite(p).all()) for p in leaves_card)
+        emit("train_vs_cpu", config="gpt2_small width, 2 layers",
+             dtype=dtype, batch=2, seq=t, loss_card=loss_card,
+             loss_cpu=loss_cpu, loss_rel_err=loss_err,
+             grads_max_norm_err=grads, params_max_norm_err=after,
+             leaves=len(leaves_card), tol=tol, finite=finite)
+        check(finite, f"non-finite params on the card ({dtype})")
+        check(loss_err <= tol["loss"], f"{dtype} loss differs: {loss_err}")
+        check(grads <= tol["grads"], f"{dtype} gradients differ: {grads}")
+        check(after <= tol["params"], f"{dtype} params differ: {after}")
+        del states, card, cpu, leaves_card, leaves_cpu
+        torch.cuda.empty_cache()
+
+
+def phase_train_profile():
+    """Device time by kernel group over one GPT-2-small train step (the
+    preset: remat on, B=16, S=1024), and the device's idle share of that
+    step's wall time."""
+    import numpy as np
+    import torch
+
+    from ray_tpu_torch.models import GPTConfig, make_train_step
+
+    cfg = GPTConfig.gpt2_small()
+    init_state, train_step = make_train_step(cfg)
+    state = init_state(torch.Generator(device="cuda").manual_seed(0))
+    tokens = np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (16, 1024), dtype=np.int64)
+    batch = (torch.from_numpy(tokens).cuda(),
+             torch.from_numpy(np.roll(tokens, -1, 1)).cuda())
+    state, m = train_step(state, batch)  # warm-up
+    float(m["loss"])
+
+    def one_step():
+        _, out = train_step(state, batch)
+        float(out["loss"])
+
+    profile_device(one_step, "train_profile",
+                   "make_train_step, gpt2_small, remat, 16x1024, 1 step")
+    del state
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     import torch
 
@@ -446,17 +782,32 @@ def main() -> int:
     peaks = phase_device()
     phase_build()
     compared = phase_compare(peaks)
-    launches = phase_slice()
+    compared_bwd = phase_compare_bwd(peaks)
+    serving = phase_slice()
     phase_online()
+    trained = phase_train(peaks)
+    phase_train_vs_cpu()
+    phase_train_profile()
 
+    # Launches on each main path, each counted over exactly its run:
+    # the batch serving slice, one train step with remat (the preset) and
+    # one without.
+    by_path = {name: {"serving": serving[name],
+                      "train": trained[True]["launches"][name],
+                      "train_no_remat": trained[False]["launches"][name]}
+               for name in serving}
     slice_row = compared[((16, 12, 1024, 64), "bfloat16", True)]
     llama_row = compared[((8, 8, 2048, 128), "bfloat16", True)]
     emit("flash_fwd_llama_shape", **llama_row)
+    bwd_row = compared_bwd[((16, 12, 1024, 64), "bfloat16", True)]
+    emit("flash_bwd_llama_shape",
+         **compared_bwd[((8, 8, 2048, 128), "bfloat16", True)])
     kernels = [{
         "name": "flash_fwd", "route": "cuda",
         "source": "ray_tpu_torch/ops/csrc/flash_fwd.cu",
         "replaces": "ray_tpu/ops/attention.py:89",
-        "launches": launches["flash_fwd"],
+        "launches": sum(by_path["flash_fwd"].values()),
+        "launches_by_path": by_path["flash_fwd"],
         "max_abs_err": slice_row["max_abs_err"],
         "max_err": max(r["max_norm_err"] for r in compared.values()),
         "ms": slice_row["ms"], "plain_ms": slice_row["plain_ms"],
@@ -464,6 +815,26 @@ def main() -> int:
         "library_ms": slice_row["library_ms"],
         "shape": slice_row["shape"], "dtype": slice_row["dtype"],
     }]
+    for name, key, grads, line in (("flash_bwd_dq", "dq", ("dq",), 233),
+                                   ("flash_bwd_dkv", "dkv", ("dk", "dv"),
+                                    280)):
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "ray_tpu_torch/ops/csrc/flash_bwd.cu",
+            "replaces": f"ray_tpu/ops/attention.py:{line}",
+            "launches": sum(by_path[name].values()),
+            "launches_by_path": by_path[name],
+            "max_abs_err": max(bwd_row["max_abs_err"][g] for g in grads),
+            "max_err": max(r["max_norm_err"][g] for r in compared_bwd.values()
+                           for g in grads),
+            "ms": bwd_row[key]["ms"],
+            # one plain call, and one SDPA backward, compute dq, dk and dv
+            "plain_ms": bwd_row["plain_ms"],
+            "bound_ms": bwd_row[key]["bound_ms"],
+            "bound_by": bwd_row[key]["bound_by"],
+            "library_ms": bwd_row["library_ms"],
+            "shape": bwd_row["shape"], "dtype": bwd_row["dtype"],
+        })
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

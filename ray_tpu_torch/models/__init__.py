@@ -5,4 +5,5 @@ package's keys and shapes, so ``convert.from_jax_params`` carries weights
 across. Llama, MoE, ViT and ResNet come in later slices."""
 
 from .convert import from_jax_params  # noqa: F401
-from .gpt import GPTConfig, gpt_forward, gpt_init  # noqa: F401
+from .gpt import (GPTConfig, gpt_forward, gpt_init, gpt_loss,  # noqa: F401
+                  make_train_step)

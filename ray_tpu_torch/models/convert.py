@@ -38,6 +38,15 @@ def _tree_map(fn, node):
     return fn(node)
 
 
+def tree_leaves(node: Any) -> list:
+    """The tensors of a param dict (dicts and lists of tensors), in order."""
+    if isinstance(node, dict):
+        return [t for v in node.values() for t in tree_leaves(v)]
+    if isinstance(node, (list, tuple)):
+        return [t for v in node for t in tree_leaves(v)]
+    return [node]
+
+
 def from_jax_params(params: Any, device: DeviceLike = None,
                     dtype: Optional[torch.dtype] = None) -> Any:
     """The JAX param dict (arrays, or numpy arrays of them) -> the same

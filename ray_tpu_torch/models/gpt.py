@@ -6,21 +6,25 @@ converted from the JAX package load as they are. Matmuls run in the
 model dtype, norms and softmax in f32, attention through
 ``ops.flash_attention`` (the Hopper kernel on CUDA).
 
-The loss and the train step come with the training slice; ``remat`` is
-kept as a field for config parity and is not read on this path.
+``gpt_loss`` is the chunked next-token cross entropy and
+``make_train_step`` the AdamW train step over it (``models/_training.py``).
+``remat`` checkpoints each block: its activations are recomputed in the
+backward instead of kept.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict
+from typing import Dict, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from .._device import DeviceLike, resolve_device
 from ..ops.attention import flash_attention
 from ..ops.layers import rms_norm, rope
+from ._training import make_train_step_for
 
 
 @dataclasses.dataclass(frozen=True)
@@ -125,11 +129,75 @@ def _head(params: Dict) -> torch.Tensor:
     return params["embed"].T if head is None else head
 
 
+def _backbone(params: Dict, tokens: torch.Tensor,
+              cfg: GPTConfig) -> torch.Tensor:
+    """Embedding + blocks + final norm: [b, s] -> [b, s, d]."""
+    x = params["embed"][tokens]
+    remat = cfg.remat and torch.is_grad_enabled()
+    for layer in params["layers"]:
+        if remat:
+            # The JAX package keeps the matmul outputs of each block
+            # (policy dots_with_no_batch_dims_saveable); torch's
+            # checkpoint keeps only the block's input and recomputes the
+            # whole block in the backward. The values are the same; that
+            # policy is not ported.
+            x = checkpoint(_block, x, layer, cfg, use_reentrant=False)
+        else:
+            x = _block(x, layer, cfg)
+    return rms_norm(x, params["lnf"])
+
+
 def gpt_forward(params: Dict, tokens: torch.Tensor,
                 cfg: GPTConfig) -> torch.Tensor:
     """tokens [batch, seq] int -> logits [batch, seq, vocab] (fp32)."""
-    x = params["embed"][tokens]
-    for layer in params["layers"]:
-        x = _block(x, layer, cfg)
-    x = rms_norm(x, params["lnf"])
+    x = _backbone(params, tokens, cfg)
     return (x @ _head(params)).float()
+
+
+_LOSS_CHUNK = 4096
+
+
+def gpt_loss(params: Dict, batch: Tuple[torch.Tensor, torch.Tensor],
+             cfg: GPTConfig) -> torch.Tensor:
+    """Next-token cross entropy; batch = (tokens, targets) [b, s].
+
+    Chunked over rows as the JAX package does: the largest power of two
+    up to ``_LOSS_CHUNK`` that divides the rows, each chunk's [chunk,
+    vocab] logits in f32, the log-likelihoods summed in f32. A row count
+    with no such divisor above 1 takes the unchunked form."""
+    tokens, targets = batch
+    x = _backbone(params, tokens, cfg)
+    head = _head(params)
+    xf = x.reshape(-1, x.shape[-1])
+    tf = targets.reshape(-1).long()
+    rows = xf.shape[0]
+    chunk = _LOSS_CHUNK
+    while chunk > 1 and rows % chunk:
+        chunk //= 2
+    if chunk <= 1:
+        logits = (xf @ head).float()
+        ll = F.log_softmax(logits, dim=-1).gather(1, tf[:, None])[:, 0]
+        return -ll.mean()
+    total = torch.zeros((), dtype=torch.float32, device=x.device)
+    for start in range(0, rows, chunk):
+        lg = (xf[start:start + chunk] @ head).float()
+        tgt = lg.gather(1, tf[start:start + chunk, None])[:, 0]
+        total = total + (tgt - torch.logsumexp(lg, dim=-1)).sum()
+    return -total / rows
+
+
+# ---------------------------------------------------------------------------
+# training step
+# ---------------------------------------------------------------------------
+def make_train_step(cfg: GPTConfig, optimizer=None,
+                    device: DeviceLike = None):
+    """Build (init_state, train_step) for ``cfg`` on ``device`` (None: the
+    CUDA card; raises without one). ``optimizer`` maps the list of params
+    to a ``torch.optim.Optimizer`` (default: AdamW as the JAX package's
+    ``optax.adamw(3e-4, weight_decay=0.01)``). See
+    ``_training.make_train_step_for``."""
+    device = resolve_device(device)
+    return make_train_step_for(
+        lambda generator: gpt_init(cfg, generator, device),
+        lambda params, batch: gpt_loss(params, batch, cfg),
+        optimizer=optimizer, device=device)

@@ -8,6 +8,7 @@ plain version. The kernels are built at first use (``_kernels.build``).
 from .attention import (  # noqa: F401
     DEFAULT_MASK_VALUE,
     flash_attention,
+    flash_bwd_reference,
     mha_reference,
 )
 from .layers import rms_norm, rope, swiglu  # noqa: F401

@@ -147,21 +147,118 @@ class TestFlashVsPallasInterpret:
                                    atol=2e-2, rtol=2e-2)
 
 
+def _lse(q, k, causal, scale):
+    """logsumexp of the scaled, masked f32 logits: the forward's lse."""
+    s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
+    if causal:
+        mask = torch.ones(q.shape[-2], k.shape[-2], dtype=torch.bool).tril()
+        s = torch.where(mask, s, tattn.DEFAULT_MASK_VALUE)
+    return torch.logsumexp(s, dim=-1)
+
+
+def _bwd_inputs(seed, shape):
+    rng = np.random.default_rng(seed)
+    return [_randn(rng, *shape) for _ in range(4)]  # q, k, v, dO
+
+
+def _bwd_reference(q, k, v, do, causal):
+    """flash_bwd_reference on torch tensors, from the forward's o and lse."""
+    scale = 1.0 / np.sqrt(q.shape[-1])
+    o = tattn.mha_reference(q, k, v, causal, scale)
+    return tattn.flash_bwd_reference(q, k, v, o, _lse(q, k, causal, scale),
+                                     do, causal, scale)
+
+
+class TestFlashBackwardReference:
+    """``flash_bwd_reference``, the plain version of the CUDA backward
+    kernels (K2, K3), against the JAX package's Pallas backward kernels in
+    interpret mode and against autograd through ``mha_reference``."""
+
+    @pytest.mark.parametrize("shape,causal", [
+        ((1, 2, 256, 64), True),
+        ((1, 2, 256, 64), False),
+        ((3, 5, 128, 32), True),
+    ])
+    def test_matches_pallas_interpret(self, monkeypatch, shape, causal):
+        monkeypatch.setenv("RAY_TPU_PALLAS_INTERPRET", "1")
+        assert jattn._kernel_ok(shape[2])
+        q, k, v, do = _bwd_inputs(6, shape)
+        _, vjp = jax.vjp(
+            lambda a, b, c: jattn.flash_attention(a, b, c, causal, None),
+            *map(jnp.asarray, (q, k, v)))
+        ref = vjp(jnp.asarray(do))
+        out = _bwd_reference(*map(torch.from_numpy, (q, k, v, do)), causal)
+        for t, j in zip(out, ref):
+            j = np.asarray(j)
+            # The JAX package's own band for its kernel gradients
+            # (tests/test_models_ops.py), after max(1, max|ref|).
+            err = np.abs(_np(t) - j).max() / max(1.0, np.abs(j).max())
+            assert err <= 6e-3, err
+
+    @pytest.mark.parametrize("shape,causal", [
+        ((1, 2, 64, 64), True),
+        ((1, 2, 64, 64), False),
+        ((2, 3, 200, 32), True),     # ragged S (not a multiple of 64)
+        ((2, 3, 200, 32), False),
+        ((2, 2, 96, 16), True),      # head_dim 16
+    ])
+    def test_matches_autograd(self, shape, causal):
+        q, k, v, do = map(torch.from_numpy, _bwd_inputs(7, shape))
+        out = _bwd_reference(q, k, v, do, causal)
+        leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+        ref = torch.autograd.grad(
+            tattn.mha_reference(*leaves, causal), leaves, do)
+        for t, r in zip(out, ref):
+            # f32 both: the same products, softmax through lse instead of
+            # its own normalization (measured ~3e-7 of max|ref|).
+            assert t.dtype == torch.float32
+            err = float((t - r).abs().max() / r.abs().max())
+            assert err <= 1e-5, err
+
+    def test_bf16_rounds_like_the_kernels(self):
+        q, k, v, do = (torch.from_numpy(a).bfloat16()
+                       for a in _bwd_inputs(8, (1, 2, 64, 32)))
+        out = _bwd_reference(q, k, v, do, True)
+        ref = _bwd_reference(*(x.float() for x in (q, k, v, do)), True)
+        for t, r in zip(out, ref):
+            assert t.dtype == torch.bfloat16
+            # P and dS rounded to bf16 before their products, each
+            # gradient rounded once more: a few bf16 ulps (2**-8).
+            err = float((t.float() - r).abs().max() / r.abs().max())
+            assert 0 < err <= 3e-2, err
+
+
 class TestKernelWrapper:
     def test_cpu_tensor_is_refused(self):
         q = torch.zeros(1, 1, 64, 64)
         with pytest.raises(ValueError, match="CUDA"):
             _kernels.flash_fwd(q, q, q, True, 0.125)
 
+    @pytest.mark.parametrize("name", ["flash_bwd_dq", "flash_bwd_dkv"])
+    def test_bwd_cpu_tensors_are_refused(self, name):
+        q = torch.zeros(1, 1, 64, 64)
+        rows = torch.zeros(1, 1, 64)
+        with pytest.raises(ValueError, match="CUDA"):
+            getattr(_kernels, name)(q, q, q, q, rows, rows, True, 0.125)
+
     def test_nothing_built_or_counted_on_import(self):
-        assert _kernels._libs == {}
-        assert set(_kernels.LAUNCHES) == set(_kernels.SOURCES)
+        assert _kernels._libs == {} and _kernels._fns == {}
+        assert _kernels.LAUNCHES == {
+            "flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
+        assert set(_kernels._SIGNATURES) == set(_kernels.LAUNCHES)
+
+    # source -> the TPU kernels (ray_tpu/ops/attention.py) it replaces
+    REPLACES = {"flash_fwd.cu": ["_fwd_kernel"],
+                "flash_bwd.cu": ["_dq_kernel", "_dkv_kernel"]}
 
     def test_sources_name_the_tpu_kernel_they_replace(self):
-        for src in _kernels.SOURCES.values():
+        assert set(_kernels.SOURCES.values()) == set(self.REPLACES)
+        for src, kernels in self.REPLACES.items():
             with open(os.path.join(_kernels.CSRC, src)) as f:
                 head = f.read(4000)
-            assert "Replaces: ray_tpu/ops/attention.py::_fwd_kernel" in head
+            for kernel in kernels:
+                assert f"Replaces: ray_tpu/ops/attention.py::{kernel}" \
+                    in head
             assert "sm_90a" in head
 
 
@@ -188,6 +285,7 @@ class TestIsolation:
             "import ray_tpu_torch, ray_tpu_torch.ops, ray_tpu_torch.models\n"
             "import ray_tpu_torch.models.generate, ray_tpu_torch.llm\n"
             "import ray_tpu_torch.models.convert\n"
+            "import ray_tpu_torch.models._training\n"
             "print('\\n'.join(sys.modules))\n")
         out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                              capture_output=True, text=True, timeout=120,
@@ -221,11 +319,12 @@ class TestDeviceRule:
         from ray_tpu_torch._device import resolve_device
         from ray_tpu_torch.llm import (ContinuousBatchingEngine,
                                        GPTInferenceStage, LLMEngine)
-        from ray_tpu_torch.models import GPTConfig, gpt_init
+        from ray_tpu_torch.models import GPTConfig, gpt_init, make_train_step
 
         monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
         for make in (resolve_device,
                      lambda: gpt_init(GPTConfig.tiny(), torch.Generator()),
+                     lambda: make_train_step(GPTConfig.tiny()),
                      LLMEngine, ContinuousBatchingEngine,
                      GPTInferenceStage):
             with pytest.raises(RuntimeError, match="device='cpu'"):
