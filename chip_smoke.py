@@ -12,16 +12,25 @@ and prints one JSON line per phase:
 
   1. device         the card (nvidia-smi name and power limit), torch, CUDA
   2. build          kernel build seconds and ptxas's register, spill and
-                    shared-memory report per kernel; the full compiler
-                    output goes to ray_tpu_torch/_build/build_log.txt
+                    shared-memory report per kernel, with its performance
+                    notes (wgmma serialised, setmaxnreg ignored), and each
+                    kernel's design read from its machine code; fails if
+                    a bf16 kernel spills or a bf16 K1 or K3 is not
+                    wgmma+tma. The full compiler output and the machine
+                    code go to ray_tpu_torch/_build/build_log.txt and
+                    sass.txt
   3. compare        flash_fwd (K1) vs mha_reference at the test and model
-                    shapes, with its lse; kernel, plain and SDPA times at
-                    the two model shapes
+                    shapes and at the edges of its 128-row and 128-key
+                    tiles (S = 127, 129, 255, 257; B*H = 1; more blocks
+                    than SMs), with its lse; kernel, plain and SDPA times
+                    at the two model shapes
   4. compare_bwd    flash_bwd_dq (K2) and flash_bwd_dkv (K3), through the
                     autograd backward of flash_attention, vs
                     flash_bwd_reference, and that reference vs autograd
-                    through mha_reference; kernel, plain and SDPA-backward
-                    times at the two model shapes
+                    through mha_reference, at the same shapes; K3 called
+                    twice on the same inputs must give bit-identical dK
+                    and dV; kernel, plain and SDPA-backward times at the
+                    two model shapes
   5. slice          GPTInferenceStage (the batch serving path that runs
                     K1): 16 prompts bucketed to T=1024, 8 greedy steps,
                     K1's launches counted over exactly that run; its
@@ -39,6 +48,7 @@ and prints one JSON line per phase:
   9. train_profile  torch.profiler over one train step: device ms by
                     group (K1, K2, K3 each a group) and the idle share
  10. kernels        one entry per kernel: launches, error, times and bound
+                    at both timed shapes, and its design
 
 and, as its last line, {"ok": true, "device": {...}}. Any failed phase or
 comparison raises, so the script exits non-zero without the last line.
@@ -98,6 +108,32 @@ PEAKS = [
     ("H100 NVL", {"bf16": 835e12, "f32": 60e12, "bytes": 3.9e12}),
     ("H200", {"bf16": 989e12, "f32": 67e12, "bytes": 4.8e12}),
     ("H100", {"bf16": 989e12, "f32": 67e12, "bytes": 3.35e12}),  # SXM
+]
+
+
+# The two timed shapes: the GPT-2-small train and serving shape, and the
+# llama bench shape (LlamaConfig.tpu_bench() at B=8).
+GPT2_SHAPE, LLAMA_SHAPE = (16, 12, 1024, 64), (8, 8, 2048, 128)
+
+# A kernel's design, from the tensor-core and copy instructions in its
+# machine code (cuobjdump -sass): HGMMA is wgmma, UTMALDG a TMA load, HMMA
+# is mma.sync; a kernel with none of them is SIMT.
+DESIGNS = (("wgmma+tma", {"HGMMA", "UTMALDG"}), ("mma.sync", {"HMMA"}),
+           ("simt", set()))
+# The kernels whose bf16 instantiations must be wgmma+tma at every head dim.
+WGMMA_KERNELS = ("flash_fwd", "flash_bwd_dkv")
+
+# bf16 cases at the edges of the kernels' tiles (128 query rows and 128
+# keys in K1, 64 or 128 keys and 64 queries in K3), run by both compare
+# phases: S one below and above 128 and 256, causal and not, B*H = 1,
+# head_dim 128 non-causal, and more blocks (512) than the card has SMs.
+EDGE_CASES = [
+    ((1, 1, 127, 64), True), ((1, 1, 127, 64), False),
+    ((2, 3, 129, 64), True), ((2, 3, 129, 128), False),
+    ((1, 4, 255, 32), True), ((1, 4, 255, 16), False),
+    ((2, 2, 257, 128), True), ((2, 2, 257, 64), False),
+    ((2, 4, 256, 128), False),
+    ((4, 64, 256, 64), True),
 ]
 
 
@@ -178,28 +214,94 @@ def phase_build():
     with open(os.path.join(_kernels.BUILD_DIR, "build_log.txt"), "w") as f:
         for name, rep in report.items():
             f.write(f"== {name} ({rep['seconds']:.1f} s)\n{rep['log']}\n")
+    ptxas = ptxas_report(rep["log"] for rep in report.values())
+    cuobjdump = os.path.join(os.path.dirname(_kernels._nvcc()), "cuobjdump")
+    sass = "".join(subprocess.run(
+        [cuobjdump, "-sass", rep["path"]], capture_output=True, text=True,
+        timeout=300, check=True).stdout for rep in report.values())
+    with open(os.path.join(_kernels.BUILD_DIR, "sass.txt"), "w") as f:
+        f.write(sass)
+    designs = sass_designs(sass)
     emit("build", seconds=seconds,
-         sources={n: r["seconds"] for n, r in report.items()},
-         ptxas=ptxas_report(rep["log"] for rep in report.values()))
+         sources={n: r["seconds"] for n, r in report.items()}, ptxas=ptxas,
+         designs=designs)
+    spilled = spilling_kernels(ptxas, "bf16")
+    check(not spilled, f"bf16 kernels spill registers: {spilled}")
+    for name in WGMMA_KERNELS:
+        found = {d: designs.get(f"{name}_bf16_kernel<{d}>")
+                 for d in (16, 32, 64, 128)}
+        check(set(found.values()) == {"wgmma+tma"},
+              f"bf16 {name} is not wgmma+tma at every head dim: {found}")
+    return designs
+
+
+def _kernel_key(mangled: str) -> str:
+    k = re.search(r"(flash_(?:fwd|bwd_dq|bwd_dkv)_(?:bf16|f32)_kernel)"
+                  r"ILi(\d+)E", mangled)
+    return f"{k.group(1)}<{k.group(2)}>" if k else mangled
 
 
 def ptxas_report(logs) -> dict:
     """Registers, spills and shared memory per compiled kernel from
-    ``-Xptxas -v``, keyed by the kernel and its head_dim."""
+    ``-Xptxas -v``, keyed by the kernel and its head_dim, with ptxas's
+    performance notes on it (C75xx: wgmma serialised, setmaxnreg
+    ignored) under "notes"."""
     out, name = {}, None
     for log in logs:
         for line in log.splitlines():
             m = re.search(r"Function properties for (\S+)", line)
+            note = re.search(r"\((C75\d\d)\) (.*?)(?: for the function "
+                             r"'(\S+)')?\.?$", line)
             if m:
-                k = re.search(r"(flash_(?:fwd|bwd_dq|bwd_dkv)_(?:bf16|f32)"
-                              r"_kernel)ILi(\d+)E", m.group(1))
-                name = f"{k.group(1)}<{k.group(2)}>" if k else m.group(1)
-                out[name] = {}
+                name = _kernel_key(m.group(1))
+                out.setdefault(name, {})
+            elif note:
+                # A note names its function or follows its entry; one that
+                # does neither is kept under "ptxas".
+                key = _kernel_key(note.group(3)) if note.group(3) \
+                    else name or "ptxas"
+                out.setdefault(key, {}).setdefault("notes", []).append(
+                    f"{note.group(1)} {note.group(2)}")
             elif name and "spill" in line:
                 out[name]["spill"] = line.strip()
             elif name and "registers" in line:
                 out[name]["registers"] = line.split(":", 1)[-1].strip()
     return out
+
+
+def sass_designs(sass: str) -> dict:
+    """The design of each kernel in ``cuobjdump -sass`` output (see
+    DESIGNS), keyed like ptxas_report; a mix that DESIGNS does not name is
+    reported as its instructions."""
+    found, name = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            name = _kernel_key(m.group(1))
+            found.setdefault(name, set())
+        elif name:
+            found[name].update(op for op in ("HGMMA", "UTMALDG", "HMMA")
+                               if op in line)
+    return {k: next((d for d, want in DESIGNS if ops == want),
+                    "+".join(sorted(ops)))
+            for k, ops in found.items()}
+
+
+def kernel_design(designs: dict, name: str) -> str:
+    """The design of kernel ``name``'s bf16 instantiations, joined with
+    "," where head dims differ."""
+    return ",".join(sorted({d for k, d in designs.items()
+                            if k.startswith(f"{name}_bf16_kernel<")}))
+
+
+def spilling_kernels(report: dict, dtype: str) -> list:
+    """The kernels of ``dtype`` in a ptxas_report that spill registers."""
+    out = []
+    for name, props in report.items():
+        m = re.search(r"(\d+) bytes spill stores", props.get("spill", ""))
+        if f"_{dtype}_" in name and m and int(m.group(1)) > 0:
+            out.append(name)
+    return sorted(out)
 
 
 def _plain_lse(q, k, causal: bool, scale: float):
@@ -237,8 +339,8 @@ def phase_compare(peaks):
         ((2, 4, 256, 128), torch.float32, True),
         ((16, 12, 1024, 64), torch.bfloat16, True),   # GPT-2-small slice
         ((8, 8, 2048, 128), torch.bfloat16, True),    # llama bench shape
-    ]
-    timed = {(16, 12, 1024, 64), (8, 8, 2048, 128)}
+    ] + [(shape, torch.bfloat16, causal) for shape, causal in EDGE_CASES]
+    timed = {GPT2_SHAPE, LLAMA_SHAPE}
     results = {}
     for shape, dtype, causal in cases:
         q, k, v = (torch.randn(shape, generator=gen, device="cuda")
@@ -524,8 +626,8 @@ def phase_compare_bwd(peaks):
         ((2, 4, 256, 128), f32, True), ((2, 4, 256, 128), bf16, True),
         ((16, 12, 1024, 64), bf16, True),   # GPT-2-small train step
         ((8, 8, 2048, 128), bf16, True),    # llama bench shape
-    ]
-    timed = {(16, 12, 1024, 64), (8, 8, 2048, 128)}
+    ] + [(shape, bf16, causal) for shape, causal in EDGE_CASES]
+    timed = {GPT2_SHAPE, LLAMA_SHAPE}
     results = {}
     for shape, dtype, causal in cases:
         q, k, v, do = (torch.randn(shape, generator=gen, device="cuda")
@@ -539,7 +641,14 @@ def phase_compare_bwd(peaks):
                for n in ("flash_bwd_dq", "flash_bwd_dkv")}
         o, lse = _kernels.flash_fwd(q, k, v, causal, scale, save_lse=True)
         ref = flash_bwd_reference(q, k, v, o, lse, do, causal, scale)
+        # K3 twice on the same inputs: each block owns its dK and dV rows
+        # and sums in a fixed order, so the two must be bit-identical.
+        delta = (do.float() * o.float()).sum(-1)
+        first = _kernels.flash_bwd_dkv(q, k, v, do, lse, delta, causal, scale)
+        again = _kernels.flash_bwd_dkv(q, k, v, do, lse, delta, causal, scale)
         torch.cuda.synchronize()
+        same = all(bool(torch.equal(a, b)) for a, b in zip(first, again))
+        del first, again
         names = ("dq", "dk", "dv")
         errs = {n: _norm_err(g, r) for n, g, r in zip(names, grads, ref)}
         abs_errs = {n: float((g.float() - r.float()).abs().max())
@@ -565,9 +674,9 @@ def phase_compare_bwd(peaks):
                "causal": causal, "max_norm_err": errs,
                "max_abs_err": abs_errs, "tol": tol,
                "ref_vs_autograd_norm_err": ref_errs,
-               "ref_tol": TOL_BWD_REF_NORM, "launched": ran}
+               "ref_tol": TOL_BWD_REF_NORM, "launched": ran,
+               "dkv_bit_identical": same}
         if tuple(shape) in timed:
-            delta = (do.float() * o.float()).sum(-1)
             fl = peaks["bf16"] if dtype == bf16 else peaks["f32"]
             size = q.element_size()
             row["dq"] = dict(zip(("bound_ms", "bound_by"), attention_bound(
@@ -592,7 +701,7 @@ def phase_compare_bwd(peaks):
                                                      scale=scale)
             row["library_ms"] = cuda_ms(lambda: torch.autograd.grad(
                 out_lib, lib, do, retain_graph=True))
-            del out, leaves, out_lib, lib, delta
+            del out, leaves, out_lib, lib
         emit("compare_bwd", **row)
         check(finite, f"non-finite backward kernel output at {shape}")
         check(ran == {"flash_bwd_dq": 1, "flash_bwd_dkv": 1},
@@ -601,8 +710,9 @@ def phase_compare_bwd(peaks):
               f"K2/K3 disagree with flash_bwd_reference at {row}")
         check(max(ref_errs.values()) <= TOL_BWD_REF_NORM,
               f"flash_bwd_reference disagrees with autograd at {row}")
+        check(same, f"two K3 calls on the same inputs differ at {shape}")
         results[(tuple(shape), row["dtype"], causal)] = row
-        del q, k, v, do, o, lse, ref
+        del q, k, v, do, o, lse, ref, delta
         torch.cuda.empty_cache()
     return results
 
@@ -780,7 +890,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     peaks = phase_device()
-    phase_build()
+    designs = phase_build()
     compared = phase_compare(peaks)
     compared_bwd = phase_compare_bwd(peaks)
     serving = phase_slice()
@@ -796,14 +906,15 @@ def main() -> int:
                       "train": trained[True]["launches"][name],
                       "train_no_remat": trained[False]["launches"][name]}
                for name in serving}
-    slice_row = compared[((16, 12, 1024, 64), "bfloat16", True)]
-    llama_row = compared[((8, 8, 2048, 128), "bfloat16", True)]
+    slice_row = compared[(GPT2_SHAPE, "bfloat16", True)]
+    llama_row = compared[(LLAMA_SHAPE, "bfloat16", True)]
     emit("flash_fwd_llama_shape", **llama_row)
-    bwd_row = compared_bwd[((16, 12, 1024, 64), "bfloat16", True)]
-    emit("flash_bwd_llama_shape",
-         **compared_bwd[((8, 8, 2048, 128), "bfloat16", True)])
+    bwd_row = compared_bwd[(GPT2_SHAPE, "bfloat16", True)]
+    bwd_llama = compared_bwd[(LLAMA_SHAPE, "bfloat16", True)]
+    emit("flash_bwd_llama_shape", **bwd_llama)
     kernels = [{
         "name": "flash_fwd", "route": "cuda",
+        "design": kernel_design(designs, "flash_fwd"),
         "source": "ray_tpu_torch/ops/csrc/flash_fwd.cu",
         "replaces": "ray_tpu/ops/attention.py:89",
         "launches": sum(by_path["flash_fwd"].values()),
@@ -814,12 +925,18 @@ def main() -> int:
         "bound_ms": slice_row["bound_ms"], "bound_by": slice_row["bound_by"],
         "library_ms": slice_row["library_ms"],
         "shape": slice_row["shape"], "dtype": slice_row["dtype"],
+        "llama_shape": {
+            "shape": llama_row["shape"], "ms": llama_row["ms"],
+            "bound_ms": llama_row["bound_ms"],
+            "bound_by": llama_row["bound_by"],
+            "library_ms": llama_row["library_ms"]},
     }]
     for name, key, grads, line in (("flash_bwd_dq", "dq", ("dq",), 233),
                                    ("flash_bwd_dkv", "dkv", ("dk", "dv"),
                                     280)):
         kernels.append({
             "name": name, "route": "cuda",
+            "design": kernel_design(designs, name),
             "source": "ray_tpu_torch/ops/csrc/flash_bwd.cu",
             "replaces": f"ray_tpu/ops/attention.py:{line}",
             "launches": sum(by_path[name].values()),
@@ -834,6 +951,11 @@ def main() -> int:
             "bound_by": bwd_row[key]["bound_by"],
             "library_ms": bwd_row["library_ms"],
             "shape": bwd_row["shape"], "dtype": bwd_row["dtype"],
+            "llama_shape": {
+                "shape": bwd_llama["shape"], "ms": bwd_llama[key]["ms"],
+                "bound_ms": bwd_llama[key]["bound_ms"],
+                "bound_by": bwd_llama[key]["bound_by"],
+                "library_ms": bwd_llama["library_ms"]},
         })
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

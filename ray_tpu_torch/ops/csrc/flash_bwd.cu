@@ -6,8 +6,8 @@
 // dS = P * (dP - delta) * scale, dQ = sum_k dS K.
 //
 // K3, dK and dV. Replaces: ray_tpu/ops/attention.py::_dkv_kernel (launched
-// by _flash_backward). Per (batch*head) and 64-row K tile, sweeping the Q
-// tiles: P^T = exp(scale * K Q^T [masked] - lse), dV = sum_q P^T dO,
+// by _flash_backward). Per (batch*head) and 128-key tile (64 at head_dim
+// 128), sweeping the Q tiles: P^T = exp(scale * K Q^T [masked] - lse), dV = sum_q P^T dO,
 // dP^T = V dO^T, dS^T = P^T * (dP^T - delta) * scale, dK = sum_q dS^T Q.
 //
 // Both take lse (m + log l, f32 [BH, S], written by flash_fwd.cu) and
@@ -16,44 +16,57 @@
 // (-0.7 * FLT_MAX) after scaling, then exp(s - lse) with no log2 prescale,
 // so a masked entry gives exactly 0 and never inf or NaN. P and dS are
 // rounded to the input dtype before their products, as the TPU kernels
-// round them (p.astype, ds.astype); every sum is kept in f32.
+// round them (p.astype, ds.astype); every sum is kept in f32. No atomics:
+// each block owns its output rows (K2 a Q tile's dQ, K3 a K tile's dK and
+// dV), so the gradients are bit-identical from run to run.
 //
-// What bounds them on an H100: at the model's shape (head_dim 64,
-// S = 1024, causal) K2 does 3 and K3 4 matrix products over the causal
-// pairs, about 304 (K2) and 338 (K3) flops per byte they must move, just
-// above the card's ~295 flops/byte ridge: at the data-sheet peaks both
-// are bound by operations, by a small margin. These first kernels are far
-// from that: they issue mma.sync (Ampere-style warp MMAs, a fraction of
-// the wgmma rate), do not overlap tile loads with the MMAs, and stage the
-// transposed operands through 2-byte shared-memory stores.
+// What bounds them on an H100: at the GPT-2 shape (head_dim 64, S = 1024,
+// causal) K2 does 3 and K3 4 matrix products over the causal pairs, about
+// 304 (K2) and 338 (K3) flops per byte they must move, just above the
+// card's ~295 flops/byte ridge: at the data-sheet peaks both are bound by
+// operations, by a small margin.
 //
-// Design (simple and right first; wgmma, TMA and warp specialisation are
-// later work), following flash_fwd.cu:
-//   * No atomics: each block owns its output rows (K2 a Q tile's dQ, K3 a
-//     K tile's dK and dV), so the gradients are the same from run to run.
-//   * grid (ceil(S/64), B*H), one block of 4 warps, 16 rows per warp.
-//     K2 keeps its rows' Q and dO fragments, lse and delta in registers
-//     for the whole K sweep (which stops at the diagonal when causal), and
-//     issues Q tiles last-first so the long causal rows start early. K3
-//     keeps its keys' K and V fragments and the f32 dK and dV
-//     accumulators in registers, and sweeps the Q tiles from the diagonal.
-//   * The other operands are staged in shared memory per 64-row tile,
-//     row-major where the head dim is the MMA depth (K and V in K2, Q and
-//     dO in K3) and transposed where the key or query axis is (K in K2,
-//     Q and dO in K3), so every B fragment is a 32-bit read; rows padded
-//     by 8 elements so those reads are free of bank conflicts.
-//   * K3 computes S^T = K Q^T directly, as the TPU kernel does: P^T and
-//     dS^T come out in the accumulator layout, which is the A-fragment
-//     layout of the dV and dK products, so they never leave registers
-//     (nor does dS in K2). Each 64-wide tile is worked 16 columns at a
-//     time, so only 16 score and 16 dP registers are live.
-//   * A ragged S is taken: keys >= S are masked (K2), queries >= S get
-//     the mask value, zero dO and zero lse and delta (K3), so they add
-//     exactly 0; rows >= S are not stored.
-//   * f32 instantiations use SIMT FMAs (no TF32), two threads per row, with
-//     the same tiles; they check the algorithm on the card apart from bf16.
-//   * At head_dim 128 K3 holds 128 f32 accumulator registers a thread,
-//     and ptxas reports what spills (chip_smoke.py prints it).
+// K3, bf16 (the FlashAttention-3 backward layout without dQ): one block of
+// consumer warpgroups, 64 keys each, and a producer warp per (bh, key
+// tile), sweeping the 64-row Q tiles from the diagonal when causal.
+//   * The producer warp loads K and V once by TMA (cp.async.bulk.tensor)
+//     and then keeps the Q and dO tiles of the sweep in flight by TMA in a
+//     ring of kDkvStages stages, each guarded by a full/empty mbarrier
+//     pair. No __syncthreads brackets a copy. Its lanes also copy the 64
+//     lse and delta values of each tile into the stage with plain loads:
+//     TMA needs a 16-byte-aligned start, which a row of a [BH, S] f32
+//     array has only when S is a multiple of 4.
+//   * All four products run on wgmma.mma_async: S^T = K Q^T and dP^T = V dO^T with both operands
+//     from shared memory, K-major as stored; dV += P^T dO and
+//     dK += dS^T Q with P^T and dS^T from registers (they come out of the
+//     first two products in the A-fragment layout) and dO and Q read
+//     MN-major through the descriptor. Nothing is staged transposed.
+//   * Registers: a consumer thread holds dK and dV (D f32 together), S^T
+//     and dP^T of a 64-query tile (64), and never the K and V fragments,
+//     which wgmma reads from shared memory. Below head_dim 128 that fits
+//     the 168 registers a thread of two consumer warpgroups can have
+//     (hopper.cuh), so a block owns 128 keys. At 128 it does not (ptxas
+//     spilled 240 bytes at 168, and setmaxnreg did not lift the limit), so
+//     a block owns 64 keys with one consumer warpgroup, whose threads may
+//     hold 255; the tile is worked in two 32-query halves there, so S^T
+//     and dP^T take 32. No instantiation spills (chip_smoke.py prints
+//     ptxas's report).
+//   * Ragged S: TMA fills Q and dO rows >= S with zeros (3-D maps end at
+//     each head's S) and the producer stores zero lse and delta for
+//     queries >= S. Those queries get the mask value, so they add exactly
+//     0; keys >= S are not stored.
+//   * Tiles are swizzled by row width (32B at head_dim 16, 64B at 32, 128B
+//     at 64; two 64-column boxes a tile at 128): see hopper.cuh.
+//
+// K2 (bf16, unchanged) and the f32 instantiations of both: grid
+// (ceil(S/64), B*H), one block of 4 warps, 16 rows per warp. K2 keeps its
+// rows' Q and dO fragments, lse and delta in registers for the whole K
+// sweep (which stops at the diagonal when causal) and issues Q tiles
+// last-first. It issues mma.sync and stages K and V per 64-row tile in
+// shared memory, row-major for S and dP and transposed for dQ += dS K
+// (rows padded by 8 elements against bank conflicts); dS never leaves
+// registers. The f32 kernels use SIMT FMAs (no TF32), two threads per
+// row; they check the algorithm on the card apart from bf16.
 //
 // C interface (loaded with ctypes): ray_tpu_torch_flash_bwd_dq(...) and
 // ray_tpu_torch_flash_bwd_dkv(...) return cudaGetLastError() after the
@@ -63,6 +76,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -251,120 +266,219 @@ flash_bwd_dq_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
-template <int D>
-constexpr size_t dkv_bf16_smem() {
-  // qs, dos [64][D + kPad]; qt, dot [D][64 + kPad]; lse, delta [64] f32
-  return sizeof(bf16) * (2 * (size_t)kBlockQ * (D + kPad) + 2 * (size_t)D * (kBlockQ + kPad)) +
-         sizeof(float) * 2 * kBlockQ;
-}
+// ---------------------------------------------------------------------------
+// K3 bf16: warp-specialised, TMA ring, wgmma (the FlashAttention-3 backward
+// layout without dQ). One block per (bh, key tile): consumer warpgroups of
+// 64 keys each, then the producer warp.
+// ---------------------------------------------------------------------------
+constexpr int kDkvQueries = 64;   // queries per Q/dO tile
+constexpr int kDkvStages = 2;     // Q/dO/lse/delta ring depth
 
 template <int D>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dkv_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                          const bf16* __restrict__ v, const bf16* __restrict__ dout,
-                          const float* __restrict__ lse,
-                          const float* __restrict__ delta, bf16* __restrict__ dk,
-                          bf16* __restrict__ dv, int seq, float scale, int causal) {
-  constexpr int kRow = D + kPad, kCol = kBlockQ + kPad;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  float* ls = reinterpret_cast<float*>(smem_raw);  // [query] lse
-  float* dls = ls + kBlockQ;                       // [query] delta
-  bf16* qs = reinterpret_cast<bf16*>(dls + kBlockQ);  // [query][d]
-  bf16* dos = qs + kBlockQ * kRow;                    // [query][d]
-  bf16* qt = dos + kBlockQ * kRow;                    // [d][query]
-  bf16* dot = qt + D * kCol;                          // [d][query]
+struct DkvSmem {
+  // 64 keys per consumer warpgroup: two below head_dim 128; one at 128,
+  // where dK, dV, S^T and dP^T need more than the 168 registers a thread
+  // of a two-warpgroup block can have.
+  static constexpr int kConsumers = D == 128 ? 1 : 2;
+  static constexpr int kKeys = 64 * kConsumers;
+  using Roles = hopper::WarpRoles<kConsumers>;
+  using KTile = hopper::Tile<D, kKeys>;
+  using QTile = hopper::Tile<D, kDkvQueries>;
+  static constexpr int kRowBytes = kDkvQueries * 4;  // one f32 row of lse or delta
+  static constexpr int kK = 0;
+  static constexpr int kV = kK + KTile::kBytes;
+  static constexpr int kQ = kV + KTile::kBytes;                  // [kDkvStages]
+  static constexpr int kDO = kQ + kDkvStages * QTile::kBytes;    // [kDkvStages]
+  static constexpr int kLse = kDO + kDkvStages * QTile::kBytes;  // [kDkvStages]
+  static constexpr int kDelta = kLse + kDkvStages * kRowBytes;   // [kDkvStages]
+  static constexpr int kBar = kDelta + kDkvStages * kRowBytes;   // kv, full[], empty[]
+  static constexpr int kBytes = kBar + 8 * (1 + 2 * kDkvStages);
+  static constexpr int kAlloc = kBytes + 1024;  // room to align the base
+  static constexpr uint32_t kStageTx = 2 * QTile::kBytes;  // Q and dO
+};
 
-  const int ktile = blockIdx.x;
-  const int k0 = ktile * kBlockK;
-  const size_t base = (size_t)blockIdx.y * seq * D;
-  const size_t rbase = (size_t)blockIdx.y * seq;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane / 4, t = lane % 4;
-  const int key0 = k0 + warp * 16 + g;
-  const int key1 = key0 + 8;
+template <int D>
+__global__ void __launch_bounds__(DkvSmem<D>::Roles::kThreads, 1)
+flash_bwd_dkv_bf16_kernel(const __grid_constant__ CUtensorMap qmap,
+                          const __grid_constant__ CUtensorMap kmap,
+                          const __grid_constant__ CUtensorMap vmap,
+                          const __grid_constant__ CUtensorMap domap,
+                          const float* __restrict__ lse, const float* __restrict__ delta,
+                          bf16* __restrict__ dk, bf16* __restrict__ dv, int seq,
+                          float scale, int causal) {
+  using L = DkvSmem<D>;
+  using KTile = typename L::KTile;
+  using QTile = typename L::QTile;
+  using Roles = typename L::Roles;
+  constexpr int kChunk = D == 128 ? 32 : kDkvQueries;
+  extern __shared__ __align__(1024) unsigned char wg_smem[];
+  const uint32_t raw = hopper::smem_addr(wg_smem);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  unsigned char* smem = wg_smem + (base - raw);  // generic pointer to `base`
+  const uint32_t kv_bar = base + L::kBar;
+  auto full_bar = [&](int s) { return kv_bar + 8u * (1 + s); };
+  auto empty_bar = [&](int s) { return kv_bar + 8u * (1 + kDkvStages + s); };
 
-  uint32_t kf[D / 16][4], vf[D / 16][4];
-  load_a_rows<D>(kf, k + base, key0, seq, t);
-  load_a_rows<D>(vf, v + base, key0, seq, t);
+  const int k0 = blockIdx.x * L::kKeys;
+  const int bh = blockIdx.y;
+  const int n_qt = (seq + kDkvQueries - 1) / kDkvQueries;
+  const int qt0 = causal ? k0 / kDkvQueries : 0;  // sweep from the diagonal
 
-  float dka[D / 8][4], dva[D / 8][4];
-#pragma unroll
-  for (int j = 0; j < D / 8; ++j) {
-    dka[j][0] = dka[j][1] = dka[j][2] = dka[j][3] = 0.f;
-    dva[j][0] = dva[j][1] = dva[j][2] = dva[j][3] = 0.f;
+  if (threadIdx.x == 0) {
+    hopper::mbar_init(kv_bar, 1);
+    for (int s = 0; s < kDkvStages; ++s) {
+      // full: the TMA arrival with its bytes, and one per producer lane
+      // once its lse and delta values are stored.
+      hopper::mbar_init(full_bar(s), 1 + 32);
+      hopper::mbar_init(empty_bar(s), Roles::kConsumerWarps);
+    }
+    hopper::mbar_fence_init();
   }
+  __syncthreads();
 
-  const int n_tiles = (seq + kBlockQ - 1) / kBlockQ;
-  for (int qti = causal ? ktile : 0; qti < n_tiles; ++qti) {
-    const int q0 = qti * kBlockQ;
-    __syncthreads();  // the previous tile's readers are done
-    stage_tile<D>(q + base, dout + base, q0, seq, qs, dos, qt, dot);
-    for (int i = threadIdx.x; i < kBlockQ; i += kThreads) {
-      const bool in = q0 + i < seq;  // rows >= seq: lse = delta = 0
-      ls[i] = in ? lse[rbase + q0 + i] : 0.f;
-      dls[i] = in ? delta[rbase + q0 + i] : 0.f;
+  if (threadIdx.x >= Roles::kConsumerThreads) {
+    // Producer warp: K and V once, then Q, dO, lse and delta per query tile.
+    const int lane = threadIdx.x - Roles::kConsumerThreads;
+    const size_t rows = (size_t)bh * seq;
+    if (lane == 0) {
+      hopper::mbar_expect_tx(kv_bar, 2 * KTile::kBytes);
+      KTile::load(&kmap, base + L::kK, kv_bar, k0, bh);
+      KTile::load(&vmap, base + L::kV, kv_bar, k0, bh);
     }
-    __syncthreads();
+    for (int i = 0; qt0 + i < n_qt; ++i) {
+      const int s = i % kDkvStages;
+      const int q0 = (qt0 + i) * kDkvQueries;
+      hopper::mbar_wait(empty_bar(s), ((i / kDkvStages) & 1) ^ 1);
+      if (lane == 0) {
+        hopper::mbar_expect_tx(full_bar(s), L::kStageTx);
+        QTile::load(&qmap, base + L::kQ + s * QTile::kBytes, full_bar(s), q0, bh);
+        QTile::load(&domap, base + L::kDO + s * QTile::kBytes, full_bar(s), q0, bh);
+      }
+      // lse and delta by plain loads (see the note at the top); queries
+      // >= seq get zero.
+      float* ls = reinterpret_cast<float*>(smem + L::kLse + s * L::kRowBytes);
+      float* dls = reinterpret_cast<float*>(smem + L::kDelta + s * L::kRowBytes);
+      for (int r = lane; r < kDkvQueries; r += 32) {
+        const bool in = q0 + r < seq;
+        ls[r] = in ? lse[rows + q0 + r] : 0.f;
+        dls[r] = in ? delta[rows + q0 + r] : 0.f;
+      }
+      hopper::mbar_arrive(full_bar(s));
+    }
+  } else {
+    // Consumers: 64 keys per warpgroup, dK and dV in registers.
+    const int r0 = (threadIdx.x / 128) * 64;  // this warpgroup's keys in the tile
+    const int tid = threadIdx.x % 128;
+    const int warp = tid / 32, lane = tid % 32;
+    const int g = lane / 4, t = lane % 4;
+    const int key0 = k0 + r0 + warp * 16 + g;
+    const int key1 = key0 + 8;
 
+    float dka[D / 2], dva[D / 2];
 #pragma unroll
-    for (int kk = 0; kk < kBlockQ / 16; ++kk) {  // 16 queries at a time
-      float st[2][4], dpt[2][4];
+    for (int i = 0; i < D / 2; ++i) dka[i] = dva[i] = 0.f;
+
+    hopper::mbar_wait(kv_bar, 0);
+    for (int i = 0; qt0 + i < n_qt; ++i) {
+      const int s = i % kDkvStages;
+      const int q0 = (qt0 + i) * kDkvQueries;
+      hopper::mbar_wait(full_bar(s), (i / kDkvStages) & 1);
+      if (causal && q0 + kDkvQueries <= k0 + r0) {
+        // Every query of the tile precedes every key here: P = 0.
+        if (lane == 0) hopper::mbar_arrive(empty_bar(s));
+        continue;
+      }
+      const uint32_t qb = base + L::kQ + s * QTile::kBytes;
+      const uint32_t dob = base + L::kDO + s * QTile::kBytes;
+      const float* ls = reinterpret_cast<const float*>(smem + L::kLse + s * L::kRowBytes);
+      const float* dls = reinterpret_cast<const float*>(smem + L::kDelta + s * L::kRowBytes);
+
+      // The tile is worked kChunk queries at a time (all 64 below head_dim
+      // 128; two halves at 128, so S^T and dP^T fit beside dK and dV).
+      const bool edge = q0 + kDkvQueries > seq || (causal && k0 + r0 + 63 > q0);
 #pragma unroll
-      for (int jj = 0; jj < 2; ++jj) {
-        const int j = 2 * kk + jj;
-        st[jj][0] = st[jj][1] = st[jj][2] = st[jj][3] = 0.f;
-        dpt[jj][0] = dpt[jj][1] = dpt[jj][2] = dpt[jj][3] = 0.f;
+      for (int h = 0; h < kDkvQueries / kChunk; ++h) {
+        // S^T = K Q^T and dP^T = V dO^T, 64 keys x kChunk queries each.
+        float st[kChunk / 2], dpt[kChunk / 2];
 #pragma unroll
-        for (int dd = 0; dd < D / 16; ++dd) {
-          const bf16* qr = &qs[(j * 8 + g) * kRow + dd * 16 + 2 * t];
-          mma_bf16(st[jj], kf[dd], ld32(qr), ld32(qr + 8));
-          const bf16* dr = &dos[(j * 8 + g) * kRow + dd * 16 + 2 * t];
-          mma_bf16(dpt[jj], vf[dd], ld32(dr), ld32(dr + 8));
+        for (int j = 0; j < kChunk / 2; ++j) st[j] = dpt[j] = 0.f;
+        hopper::wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk)
+          hopper::wgmma_ss<kChunk>(st, KTile::kmajor(base + L::kK, r0, kk),
+                                   QTile::kmajor(qb, h * kChunk, kk), kk > 0);
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk)
+          hopper::wgmma_ss<kChunk>(dpt, KTile::kmajor(base + L::kV, r0, kk),
+                                   QTile::kmajor(dob, h * kChunk, kk), kk > 0);
+        hopper::wgmma_commit();
+        hopper::fence_regs(st);
+        hopper::fence_regs(dpt);
+        hopper::wgmma_wait<0>();
+        hopper::fence_regs(st);
+        hopper::fence_regs(dpt);
+
+        // P^T and dS^T = P^T * (dP^T - delta) * scale. A query >= seq is
+        // masked (P = 0) and has zero dO, lse and delta, so it adds 0.
+#pragma unroll
+        for (int j = 0; j < kChunk / 8; ++j) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int qi = h * kChunk + j * 8 + 2 * t + (e & 1);
+            const int query = q0 + qi;
+            float x = st[4 * j + e] * scale;
+            if (edge) {
+              const int key = e < 2 ? key0 : key1;
+              if (query >= seq || (causal && key > query)) x = kMaskValue;
+            }
+            const float p = __expf(x - ls[qi]);
+            st[4 * j + e] = p;
+            dpt[4 * j + e] = p * (dpt[4 * j + e] - dls[qi]) * scale;
+          }
         }
-      }
-      // P^T and dS^T = P^T * (dP^T - delta) * scale; a query >= seq is
-      // masked (P = 0) and has zero dO and delta, so it adds exactly 0.
+        uint32_t pa[kChunk / 16][4], da[kChunk / 16][4];
 #pragma unroll
-      for (int jj = 0; jj < 2; ++jj) {
+        for (int kk = 0; kk < kChunk / 16; ++kk) {
 #pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int qi = (2 * kk + jj) * 8 + 2 * t + (e & 1);
-          const int query = q0 + qi;
-          const int key = e < 2 ? key0 : key1;
-          float x = st[jj][e] * scale;
-          if (query >= seq || (causal && key > query)) x = kMaskValue;
-          const float p = __expf(x - ls[qi]);
-          st[jj][e] = p;
-          dpt[jj][e] = p * (dpt[jj][e] - dls[qi]) * scale;
+          for (int r = 0; r < 4; ++r) {
+            pa[kk][r] = pack_bf16(st[8 * kk + 2 * r], st[8 * kk + 2 * r + 1]);
+            da[kk][r] = pack_bf16(dpt[8 * kk + 2 * r], dpt[8 * kk + 2 * r + 1]);
+          }
         }
-      }
-      const uint32_t pa[4] = {pack_bf16(st[0][0], st[0][1]), pack_bf16(st[0][2], st[0][3]),
-                              pack_bf16(st[1][0], st[1][1]), pack_bf16(st[1][2], st[1][3])};
-      const uint32_t da[4] = {pack_bf16(dpt[0][0], dpt[0][1]), pack_bf16(dpt[0][2], dpt[0][3]),
-                              pack_bf16(dpt[1][0], dpt[1][1]), pack_bf16(dpt[1][2], dpt[1][3])};
-      // dV += P^T dO and dK += dS^T Q, the query axis as depth.
-#pragma unroll
-      for (int j = 0; j < D / 8; ++j) {
-        const bf16* dr = &dot[(j * 8 + g) * kCol + kk * 16 + 2 * t];
-        mma_bf16(dva[j], pa, ld32(dr), ld32(dr + 8));
-        const bf16* qr = &qt[(j * 8 + g) * kCol + kk * 16 + 2 * t];
-        mma_bf16(dka[j], da, ld32(qr), ld32(qr + 8));
-      }
-    }
-  }
 
+        // dV += P^T dO and dK += dS^T Q, the query axis as depth: dO and Q
+        // read MN-major from the stage, no transposed copy.
+        hopper::wgmma_fence();
 #pragma unroll
-  for (int j = 0; j < D / 8; ++j) {
-    const int c = j * 8 + 2 * t;
-    if (key0 < seq) {
-      const size_t off = base + (size_t)key0 * D + c;
-      *reinterpret_cast<uint32_t*>(dk + off) = pack_bf16(dka[j][0], dka[j][1]);
-      *reinterpret_cast<uint32_t*>(dv + off) = pack_bf16(dva[j][0], dva[j][1]);
+        for (int kk = 0; kk < kChunk / 16; ++kk) {
+          const int depth = h * (kChunk / 16) + kk;
+          hopper::wgmma_rs<D>(dva, pa[kk], QTile::mnmajor(dob, depth), 1);
+          hopper::wgmma_rs<D>(dka, da[kk], QTile::mnmajor(qb, depth), 1);
+        }
+        hopper::wgmma_commit();
+        hopper::fence_regs(dva);
+        hopper::fence_regs(dka);
+        hopper::wgmma_wait<0>();
+        hopper::fence_regs(dva);
+        hopper::fence_regs(dka);
+      }
+      if (lane == 0) hopper::mbar_arrive(empty_bar(s));  // the stage is free
     }
-    if (key1 < seq) {
-      const size_t off = base + (size_t)key1 * D + c;
-      *reinterpret_cast<uint32_t*>(dk + off) = pack_bf16(dka[j][2], dka[j][3]);
-      *reinterpret_cast<uint32_t*>(dv + off) = pack_bf16(dva[j][2], dva[j][3]);
+
+    const size_t obase = (size_t)bh * seq * D;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      const int c = j * 8 + 2 * t;
+      if (key0 < seq) {
+        const size_t off = obase + (size_t)key0 * D + c;
+        *reinterpret_cast<uint32_t*>(dk + off) = pack_bf16(dka[4 * j + 0], dka[4 * j + 1]);
+        *reinterpret_cast<uint32_t*>(dv + off) = pack_bf16(dva[4 * j + 0], dva[4 * j + 1]);
+      }
+      if (key1 < seq) {
+        const size_t off = obase + (size_t)key1 * D + c;
+        *reinterpret_cast<uint32_t*>(dk + off) = pack_bf16(dka[4 * j + 2], dka[4 * j + 3]);
+        *reinterpret_cast<uint32_t*>(dv + off) = pack_bf16(dva[4 * j + 2], dva[4 * j + 3]);
+      }
     }
   }
 }
@@ -573,21 +687,21 @@ struct BwdArgs {
   const void *q, *k, *v, *dout;
   const float *lse, *delta;
   void *dq, *dk, *dv;
-  int seq, causal;
+  int bh, seq, causal;
   float scale;
-  dim3 grid;
   cudaStream_t stream;
 };
 
 template <int D>
 cudaError_t launch_dq(const BwdArgs& a, int dtype) {
   cudaError_t err;
+  const dim3 grid((a.seq + kBlockQ - 1) / kBlockQ, a.bh);
   if (dtype == 1) {
     constexpr size_t smem = dq_bf16_smem<D>();
     err = cudaFuncSetAttribute(flash_bwd_dq_bf16_kernel<D>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
-    flash_bwd_dq_bf16_kernel<D><<<a.grid, kThreads, smem, a.stream>>>(
+    flash_bwd_dq_bf16_kernel<D><<<grid, kThreads, smem, a.stream>>>(
         static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
         static_cast<const bf16*>(a.v), static_cast<const bf16*>(a.dout), a.lse,
         a.delta, static_cast<bf16*>(a.dq), a.seq, a.scale, a.causal);
@@ -596,7 +710,7 @@ cudaError_t launch_dq(const BwdArgs& a, int dtype) {
     err = cudaFuncSetAttribute(flash_bwd_dq_f32_kernel<D>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
-    flash_bwd_dq_f32_kernel<D><<<a.grid, kThreads, smem, a.stream>>>(
+    flash_bwd_dq_f32_kernel<D><<<grid, kThreads, smem, a.stream>>>(
         static_cast<const float*>(a.q), static_cast<const float*>(a.k),
         static_cast<const float*>(a.v), static_cast<const float*>(a.dout), a.lse,
         a.delta, static_cast<float*>(a.dq), a.seq, a.scale, a.causal);
@@ -604,25 +718,33 @@ cudaError_t launch_dq(const BwdArgs& a, int dtype) {
   return cudaGetLastError();
 }
 
+// K3 bf16 takes its own grid of key tiles and tensor maps; f32 keeps the
+// 64-row grid of the SIMT kernels.
 template <int D>
 cudaError_t launch_dkv(const BwdArgs& a, int dtype) {
   cudaError_t err;
   if (dtype == 1) {
-    constexpr size_t smem = dkv_bf16_smem<D>();
-    err = cudaFuncSetAttribute(flash_bwd_dkv_bf16_kernel<D>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    CUtensorMap qmap, kmap, vmap, domap;
+    err = hopper::map_rows(&qmap, a.q, a.bh, a.seq, D, kDkvQueries);
+    if (err == cudaSuccess) err = hopper::map_rows(&domap, a.dout, a.bh, a.seq, D, kDkvQueries);
+    if (err == cudaSuccess) err = hopper::map_rows(&kmap, a.k, a.bh, a.seq, D, DkvSmem<D>::kKeys);
+    if (err == cudaSuccess) err = hopper::map_rows(&vmap, a.v, a.bh, a.seq, D, DkvSmem<D>::kKeys);
     if (err != cudaSuccess) return err;
-    flash_bwd_dkv_bf16_kernel<D><<<a.grid, kThreads, smem, a.stream>>>(
-        static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
-        static_cast<const bf16*>(a.v), static_cast<const bf16*>(a.dout), a.lse,
-        a.delta, static_cast<bf16*>(a.dk), static_cast<bf16*>(a.dv), a.seq, a.scale,
-        a.causal);
+    constexpr int smem = DkvSmem<D>::kAlloc;
+    err = cudaFuncSetAttribute(flash_bwd_dkv_bf16_kernel<D>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+    const dim3 grid((a.seq + DkvSmem<D>::kKeys - 1) / DkvSmem<D>::kKeys, a.bh);
+    flash_bwd_dkv_bf16_kernel<D><<<grid, DkvSmem<D>::Roles::kThreads, smem, a.stream>>>(
+        qmap, kmap, vmap, domap, a.lse, a.delta, static_cast<bf16*>(a.dk),
+        static_cast<bf16*>(a.dv), a.seq, a.scale, a.causal);
   } else {
     constexpr size_t smem = f32_smem<D>();
     err = cudaFuncSetAttribute(flash_bwd_dkv_f32_kernel<D>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
-    flash_bwd_dkv_f32_kernel<D><<<a.grid, kThreads, smem, a.stream>>>(
+    const dim3 grid((a.seq + kBlockK - 1) / kBlockK, a.bh);
+    flash_bwd_dkv_f32_kernel<D><<<grid, kThreads, smem, a.stream>>>(
         static_cast<const float*>(a.q), static_cast<const float*>(a.k),
         static_cast<const float*>(a.v), static_cast<const float*>(a.dout), a.lse,
         a.delta, static_cast<float*>(a.dk), static_cast<float*>(a.dv), a.seq, a.scale,
@@ -648,7 +770,7 @@ cudaError_t prepare(BwdArgs& a, int bh, int seq, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   if (bh <= 0 || bh > 65535 || seq <= 0) return cudaErrorInvalidValue;
-  a.grid = dim3((seq + kBlockQ - 1) / kBlockQ, bh);
+  a.bh = bh;
   a.seq = seq;
   a.stream = static_cast<cudaStream_t>(stream);
   return cudaSuccess;
@@ -665,8 +787,8 @@ extern "C" int ray_tpu_torch_flash_bwd_dq(const void* q, const void* k, const vo
                                           int head_dim, int dtype, int causal,
                                           float scale, int device, void* stream) {
   BwdArgs a = {q, k, v, dout, static_cast<const float*>(lse),
-               static_cast<const float*>(delta), dq, nullptr, nullptr, 0, causal, scale,
-               dim3(), nullptr};
+               static_cast<const float*>(delta), dq, nullptr, nullptr, 0, 0, causal, scale,
+               nullptr};
   cudaError_t err = prepare(a, bh, seq, device, stream);
   if (err != cudaSuccess) return err;
   return dispatch<launch_dq<16>, launch_dq<32>, launch_dq<64>, launch_dq<128>>(
@@ -680,8 +802,8 @@ extern "C" int ray_tpu_torch_flash_bwd_dkv(const void* q, const void* k, const v
                                            int seq, int head_dim, int dtype, int causal,
                                            float scale, int device, void* stream) {
   BwdArgs a = {q, k, v, dout, static_cast<const float*>(lse),
-               static_cast<const float*>(delta), nullptr, dk, dv, 0, causal, scale,
-               dim3(), nullptr};
+               static_cast<const float*>(delta), nullptr, dk, dv, 0, 0, causal, scale,
+               nullptr};
   cudaError_t err = prepare(a, bh, seq, device, stream);
   if (err != cudaSuccess) return err;
   return dispatch<launch_dkv<16>, launch_dkv<32>, launch_dkv<64>, launch_dkv<128>>(

@@ -1,0 +1,207 @@
+"""CPU tests of chip_smoke.py's pure-Python helpers (the ptxas report, the
+attention bounds, the profiler's kernel groups, the case tables, the
+kernel designs read from machine code), and of
+chip_smoke.py and bench_kernels.py refusing to run without a card. They
+need no card: chip_smoke.py imports only the standard library at module
+level."""
+
+import importlib.util
+import os
+import shutil
+import subprocess
+import sys
+
+import pytest
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _load():
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join(REPO, "chip_smoke.py"))
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+cs = _load()
+
+_FWD = ("_ZN45_GLOBAL__N__8f4ed862_12_flash_fwd_cu_5c297d6e21flash_fwd_bf16_"
+        "kernelILi{d}EEEv14CUtensorMap_stS1_S1_P13__nv_bfloat16Pfifi")
+_DKV = ("_ZN45_GLOBAL__N__14df9a74_12_flash_bwd_cu_bfc9642125flash_bwd_dkv_"
+        "bf16_kernelILi{d}EEEv14CUtensorMap_stS1_S1_S1_PKfS3_P13__nv_bfloat16"
+        "S5_ifi")
+
+
+def _entry(mangled: str, regs: int, spill: int = 0) -> str:
+    stack = f"{spill} bytes stack frame, {spill} bytes spill stores, " \
+            f"{spill} bytes spill loads"
+    return (f"ptxas info    : Compiling entry function '{mangled}' for "
+            f"'sm_90a'\n"
+            f"ptxas info    : Function properties for {mangled}\n"
+            f"    {stack}\n"
+            f"ptxas info    : Used {regs} registers, used 1 barriers\n"
+            f"ptxas info    : Compile time = 150.0 ms\n")
+
+
+# ptxas -v for the wgmma/TMA K1 and K3 at the four head dims, with the
+# register counts an H100 build reported.
+FWD_LOG = "".join(_entry(_FWD.format(d=d), r)
+                  for d, r in ((128, 168), (64, 168), (32, 168), (16, 128)))
+DKV_LOG = "".join(_entry(_DKV.format(d=d), r)
+                  for d, r in ((128, 228), (64, 166), (32, 140), (16, 119)))
+# A build of K3 at head_dim 128 that spilled, with ptxas's notes.
+SPILLED_LOG = (
+    "ptxas info    : (C7512) Potential Performance Loss: wgmma.mma_async "
+    "instructions are serialized due to insufficient register resources "
+    f"for the function '{_DKV.format(d=128)}'\n"
+    "ptxas info    : (C7508) Potential Performance Loss: 'setmaxnreg' "
+    "ignored; unable to determine register count at entry.\n"
+    + _entry(_DKV.format(d=128), 168, 248))
+
+
+class TestPtxasReport:
+    def test_new_kernels_at_every_head_dim(self):
+        report = cs.ptxas_report([FWD_LOG, DKV_LOG])
+        for kernel in ("flash_fwd_bf16_kernel", "flash_bwd_dkv_bf16_kernel"):
+            for d in (16, 32, 64, 128):
+                props = report[f"{kernel}<{d}>"]
+                assert props["registers"].startswith("Used ")
+                assert "0 bytes spill stores" in props["spill"]
+        assert report["flash_bwd_dkv_bf16_kernel<128>"]["registers"] \
+            == "Used 228 registers, used 1 barriers"
+        assert cs.spilling_kernels(report, "bf16") == []
+
+    def test_spill_and_notes_are_found(self):
+        report = cs.ptxas_report([SPILLED_LOG])
+        props = report["flash_bwd_dkv_bf16_kernel<128>"]
+        assert "248 bytes spill stores" in props["spill"]
+        assert props["notes"][0].startswith("C7512 ")
+        assert report["ptxas"]["notes"][0].startswith("C7508 ")
+        assert cs.spilling_kernels(report, "bf16") == [
+            "flash_bwd_dkv_bf16_kernel<128>"]
+        assert cs.spilling_kernels(report, "f32") == []
+
+    def test_unknown_function_keeps_its_name(self):
+        report = cs.ptxas_report([_entry("_Z10other_kernelv", 32)])
+        assert report["_Z10other_kernelv"]["registers"].startswith("Used 32")
+
+
+H100 = {"bf16": 989e12, "bytes": 3.35e12}
+
+
+class TestAttentionBound:
+    @pytest.mark.parametrize("shape,args,ms,by", [
+        ((16, 12, 1024, 64), (), 0.0300, "bytes"),              # K1
+        ((16, 12, 1024, 64), (4, 6, 2), 0.0522, "operations"),  # K3
+        ((8, 8, 2048, 128), (), 0.0695, "operations"),          # K1
+        ((8, 8, 2048, 128), (4, 6, 2), 0.1390, "operations"),   # K3
+    ])
+    def test_model_shapes(self, shape, args, ms, by):
+        bound_ms, bound_by = cs.attention_bound(
+            shape, 2, True, H100["bf16"], H100["bytes"], *args)
+        assert round(bound_ms, 4) == ms and bound_by == by
+
+    def test_causal_counts_the_pairs_it_computes(self):
+        full, _ = cs.attention_bound((1, 1, 4096, 64), 2, False, 1e12, 1e18)
+        half, _ = cs.attention_bound((1, 1, 4096, 64), 2, True, 1e12, 1e18)
+        assert half == pytest.approx(full * 4097 / 8192)
+
+
+class TestKernelGroup:
+    @pytest.mark.parametrize("name,group", [
+        ("void (anonymous namespace)::flash_fwd_bf16_kernel<64>("
+         "CUtensorMap_st, CUtensorMap_st, CUtensorMap_st, __nv_bfloat16*, "
+         "float*, int, float, int)", "K1"),
+        ("void (anonymous namespace)::flash_bwd_dkv_bf16_kernel<128>("
+         "CUtensorMap_st, CUtensorMap_st, CUtensorMap_st, CUtensorMap_st, "
+         "float const*, float const*, __nv_bfloat16*, __nv_bfloat16*, int, "
+         "float, int)", "K3"),
+        ("void (anonymous namespace)::flash_bwd_dq_bf16_kernel<64>("
+         "__nv_bfloat16 const*)", "K2"),
+        (_FWD.format(d=128), "K1"),
+        (_DKV.format(d=16), "K3"),
+        ("nvjet_hsh_128x256_64x4_2x1_v_bz_coopA_NTN", "matmul"),
+    ])
+    def test_groups(self, name, group):
+        assert cs._kernel_group(name).startswith(group)
+
+
+class TestCaseTables:
+    def test_edge_cases_cover_the_tile_edges(self):
+        seqs = {(shape[2], causal) for shape, causal in cs.EDGE_CASES}
+        for s in (127, 129, 255, 257):
+            assert (s, True) in seqs and (s, False) in seqs
+        assert any(b * h == 1 for (b, h, _, _), _ in cs.EDGE_CASES)
+        assert ((2, 4, 256, 128), False) in cs.EDGE_CASES
+        # more blocks than an H100's 132 SMs, for K1 (128 rows a block)
+        # and K3 (at most 128 keys a block)
+        assert any(b * h * -(-s // 128) > 132
+                   for (b, h, s, _), _ in cs.EDGE_CASES)
+
+_DQ = ("_ZN45_GLOBAL__N__14df9a74_12_flash_bwd_cu_bfc9642124flash_bwd_dq_"
+       "{t}_kernelILi{d}EEEvPKT_S4_S4_S4_PKfS6_PS2_ifi")
+
+
+def _sass(mangled: str, *ops: str) -> str:
+    """One function of ``cuobjdump -sass`` output issuing ``ops``."""
+    body = "".join(f"        /*{i:04x}*/                   {op} ;"
+                   f"                 /* 0x000fe20008000000 */\n"
+                   for i, op in enumerate(("LDC R1, c[0x0][0x28]",) + ops))
+    return (f"\t\tFunction : {mangled}\n"
+            "\t.headerflags\t@\"EF_CUDA_TEXMODE_UNIFIED EF_CUDA_64BIT_ADDRESS "
+            "EF_CUDA_SM90 EF_CUDA_VIRTUAL_SM(EF_CUDA_SM90)\"\n" + body +
+            "        /*1000*/                   EXIT ;\n"
+            "\t\t..........\n\n")
+
+
+_HGMMA = "HGMMA.64x64x16.F32.BF16 R24, gdesc[UR8], RZ, !UPT, gsb0"
+_TMA = "UTMALDG.3D [UR16], [UR6], desc[UR4]"
+SASS = ("\nFatbin elf code:\n================\narch = sm_90a\n"
+        "code version = [1,8]\nhost = linux\ncompile_size = 64bit\n\n"
+        "\tcode for sm_90a\n"
+        + "".join(_sass(_FWD.format(d=d), _TMA, _HGMMA)
+                  for d in (16, 32, 64, 128))
+        + "".join(_sass(_DQ.format(t=t, d=64), *ops) for t, ops in (
+            ("bf16", ("HMMA.16816.F32.BF16 R4, R8, R12, R4",)),
+            ("f32", ("FFMA R5, R6, R7, R5",))))
+        + _sass(_DKV.format(d=64), _TMA, "HMMA.16816.F32.BF16 R4, R8, R12, R4",
+                _HGMMA))
+
+
+class TestDesigns:
+    def test_designs_from_machine_code(self):
+        designs = cs.sass_designs(SASS)
+        assert {designs[f"flash_fwd_bf16_kernel<{d}>"]
+                for d in (16, 32, 64, 128)} == {"wgmma+tma"}
+        assert designs["flash_bwd_dq_bf16_kernel<64>"] == "mma.sync"
+        assert designs["flash_bwd_dq_f32_kernel<64>"] == "simt"
+        # a mix that no design names shows its instructions
+        assert designs["flash_bwd_dkv_bf16_kernel<64>"] \
+            == "HGMMA+HMMA+UTMALDG"
+
+    def test_kernel_design_reads_the_bf16_instantiations(self):
+        designs = cs.sass_designs(SASS)
+        assert cs.kernel_design(designs, "flash_fwd") == "wgmma+tma"
+        assert cs.kernel_design(designs, "flash_bwd_dq") == "mma.sync"
+        designs["flash_fwd_bf16_kernel<16>"] = "mma.sync"
+        assert cs.kernel_design(designs, "flash_fwd") == "mma.sync,wgmma+tma"
+
+
+class TestWithoutCard:
+    def test_chip_smoke_fails_without_card_or_repo(self, tmp_path):
+        alone = tmp_path / "chip_smoke.py"
+        shutil.copy(os.path.join(REPO, "chip_smoke.py"), alone)
+        for cwd, script in ((REPO, "chip_smoke.py"), (tmp_path, alone)):
+            run = subprocess.run([sys.executable, str(script)], cwd=cwd,
+                                 capture_output=True, text=True, timeout=120,
+                                 env={**os.environ, "CUDA_VISIBLE_DEVICES": ""})
+            assert run.returncode != 0
+            assert '"ok": true' not in run.stdout
+
+    def test_bench_kernels_fails_without_card(self):
+        run = subprocess.run(
+            [sys.executable, "bench_kernels.py"], cwd=REPO,
+            capture_output=True, text=True, timeout=120,
+            env={**os.environ, "CUDA_VISIBLE_DEVICES": ""})
+        assert run.returncode == 1 and "no CUDA device" in run.stderr
