@@ -15,7 +15,7 @@ and prints one JSON line per phase:
                     shared-memory report per kernel, with its performance
                     notes (wgmma serialised, setmaxnreg ignored), and each
                     kernel's design read from its machine code; fails if
-                    a bf16 kernel spills or a bf16 K1 or K3 is not
+                    a bf16 kernel spills or a bf16 K1, K2 or K3 is not
                     wgmma+tma. The full compiler output and the machine
                     code go to ray_tpu_torch/_build/build_log.txt and
                     sass.txt
@@ -27,10 +27,11 @@ and prints one JSON line per phase:
   4. compare_bwd    flash_bwd_dq (K2) and flash_bwd_dkv (K3), through the
                     autograd backward of flash_attention, vs
                     flash_bwd_reference, and that reference vs autograd
-                    through mha_reference, at the same shapes; K3 called
-                    twice on the same inputs must give bit-identical dK
-                    and dV; kernel, plain and SDPA-backward times at the
-                    two model shapes
+                    through mha_reference, at the same shapes; the delta
+                    K2 writes vs rowsum(dO * O); K2 and K3 each called
+                    twice on the same inputs (K3 on K2's delta) must give
+                    bit-identical outputs; kernel, plain, whole-backward
+                    and SDPA-backward times at the two model shapes
   5. slice          GPTInferenceStage (the batch serving path that runs
                     K1): 16 prompts bucketed to T=1024, 8 greedy steps,
                     K1's launches counted over exactly that run; its
@@ -91,6 +92,11 @@ TOL_LSE_ABS = 1e-3
 #   to bf16 once: a few ulps of bf16 (2**-8 = 3.9e-3).
 TOL_BWD_F32_NORM = 6e-3
 TOL_BWD_BF16_NORM = 1e-2
+# delta = rowsum(dO * O) from K2 vs the same sum in torch, over the row's
+#   sum of |dO * O| (delta can cancel, so the band is not taken against
+#   delta itself): the products are the same (exact in f32 for bf16
+#   inputs), summed in another order.
+TOL_DELTA = 1e-5
 # flash_bwd_reference vs autograd through mha_reference, both f32, after
 #   dividing by max|ref|: the same products, the softmax through lse
 #   instead of its own normalization.
@@ -121,7 +127,7 @@ GPT2_SHAPE, LLAMA_SHAPE = (16, 12, 1024, 64), (8, 8, 2048, 128)
 DESIGNS = (("wgmma+tma", {"HGMMA", "UTMALDG"}), ("mma.sync", {"HMMA"}),
            ("simt", set()))
 # The kernels whose bf16 instantiations must be wgmma+tma at every head dim.
-WGMMA_KERNELS = ("flash_fwd", "flash_bwd_dkv")
+WGMMA_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
 
 # bf16 cases at the edges of the kernels' tiles (128 query rows and 128
 # keys in K1, 64 or 128 keys and 64 queries in K3), run by both compare
@@ -175,11 +181,11 @@ def attention_bound(shape, dtype_bytes: int, causal: bool, peak: float,
                     bw: float, matmuls: int = 2, tensors: int = 4,
                     rows: int = 0):
     """(bound_ms, bound_by): ``tensors`` [B, H, S, D] read or written once
-    and ``rows`` f32 [B, H, S] read once, against the flops of ``matmuls``
-    products over the (causal) pairs this run computes. K1: QK^T and PV;
-    q, k, v read, o written. K2: 3 products; q, k, v, dO read, dq
-    written, lse and delta read. K3: 4 products; 4 read, dk and dv
-    written, lse and delta read."""
+    and ``rows`` f32 [B, H, S] read or written once, against the flops of
+    ``matmuls`` products over the (causal) pairs this run computes. K1:
+    QK^T and PV; q, k, v read, o written. K2 (3, 6, 2): 3 products; q, k,
+    v, dO and O read, dq written, lse read and delta written. K3 (4, 6,
+    2): 4 products; 4 read, dk and dv written, lse and delta read."""
     b, h, s, d = shape
     nbytes = tensors * b * h * s * d * dtype_bytes + rows * b * h * s * 4
     pairs = s * (s + 1) // 2 if causal else s * s
@@ -602,15 +608,29 @@ def _norm_err(out, ref, floor: float = 1.0) -> float:
         floor, float(ref.float().abs().max()))
 
 
+def delta_err(delta, do, o) -> float:
+    """The largest |delta - rowsum(do * o)| over the row's sum of
+    |do * o|, the sums in f32 (see TOL_DELTA)."""
+    import torch
+
+    prod = do.float() * o.float()
+    gap = (delta - prod.sum(-1)).abs()
+    mag = prod.abs().sum(-1).clamp_min(torch.finfo(torch.float32).tiny)
+    return float((gap / mag).max())
+
+
 def phase_compare_bwd(peaks):
     """K2 and K3 through flash_attention's autograd backward against
-    flash_bwd_reference on the card; the reference against autograd
-    through mha_reference in f32; times at the two model shapes."""
+    flash_bwd_reference on the card; K2's delta against rowsum(dO * O);
+    the reference against autograd through mha_reference in f32; times
+    at the two model shapes."""
     import torch
     import torch.nn.functional as F
 
     from ray_tpu_torch.ops import _kernels
     from ray_tpu_torch.ops.attention import (flash_attention,
+                                             flash_bwd_dkv_reference,
+                                             flash_bwd_dq_reference,
                                              flash_bwd_reference,
                                              mha_reference)
 
@@ -641,14 +661,20 @@ def phase_compare_bwd(peaks):
                for n in ("flash_bwd_dq", "flash_bwd_dkv")}
         o, lse = _kernels.flash_fwd(q, k, v, causal, scale, save_lse=True)
         ref = flash_bwd_reference(q, k, v, o, lse, do, causal, scale)
-        # K3 twice on the same inputs: each block owns its dK and dV rows
-        # and sums in a fixed order, so the two must be bit-identical.
-        delta = (do.float() * o.float()).sum(-1)
+        # K2 and K3 twice each on the same inputs, K3 on K2's delta: each
+        # block owns its output rows and sums in a fixed order, so the
+        # two calls must be bit-identical.
+        dq_first, delta = _kernels.flash_bwd_dq(q, k, v, o, do, lse, causal,
+                                                scale)
+        dq_again = _kernels.flash_bwd_dq(q, k, v, o, do, lse, causal, scale)
         first = _kernels.flash_bwd_dkv(q, k, v, do, lse, delta, causal, scale)
         again = _kernels.flash_bwd_dkv(q, k, v, do, lse, delta, causal, scale)
         torch.cuda.synchronize()
         same = all(bool(torch.equal(a, b)) for a, b in zip(first, again))
-        del first, again
+        same_dq = all(bool(torch.equal(a, b))
+                      for a, b in zip((dq_first, delta), dq_again))
+        d_err = delta_err(delta, do, o)
+        del first, again, dq_first, dq_again
         names = ("dq", "dk", "dv")
         errs = {n: _norm_err(g, r) for n, g, r in zip(names, grads, ref)}
         abs_errs = {n: float((g.float() - r.float()).abs().max())
@@ -675,21 +701,24 @@ def phase_compare_bwd(peaks):
                "max_abs_err": abs_errs, "tol": tol,
                "ref_vs_autograd_norm_err": ref_errs,
                "ref_tol": TOL_BWD_REF_NORM, "launched": ran,
-               "dkv_bit_identical": same}
+               "delta_err": d_err, "delta_tol": TOL_DELTA,
+               "dq_bit_identical": same_dq, "dkv_bit_identical": same}
         if tuple(shape) in timed:
             fl = peaks["bf16"] if dtype == bf16 else peaks["f32"]
             size = q.element_size()
             row["dq"] = dict(zip(("bound_ms", "bound_by"), attention_bound(
-                shape, size, causal, fl, peaks["bytes"], 3, 5, 2)))
+                shape, size, causal, fl, peaks["bytes"], 3, 6, 2)))
             row["dkv"] = dict(zip(("bound_ms", "bound_by"), attention_bound(
                 shape, size, causal, fl, peaks["bytes"], 4, 6, 2)))
             row["dq"]["ms"] = cuda_ms(lambda: _kernels.flash_bwd_dq(
-                q, k, v, do, lse, delta, causal, scale))
+                q, k, v, o, do, lse, causal, scale))
             row["dkv"]["ms"] = cuda_ms(lambda: _kernels.flash_bwd_dkv(
                 q, k, v, do, lse, delta, causal, scale))
-            # One plain call computes dq, dk and dv together.
-            row["plain_ms"] = cuda_ms(lambda: flash_bwd_reference(
-                q, k, v, o, lse, do, causal, scale), iters=5)
+            row["dq"]["plain_ms"] = cuda_ms(lambda: flash_bwd_dq_reference(
+                q, k, v, o, do, lse, causal, scale), iters=5)
+            row["dkv"]["plain_ms"] = cuda_ms(
+                lambda: flash_bwd_dkv_reference(q, k, v, do, lse, delta,
+                                                causal, scale), iters=5)
             leaves = [x.clone().requires_grad_() for x in (q, k, v)]
             out = flash_attention(*leaves, causal, scale)
             row["autograd_bwd_ms"] = cuda_ms(lambda: torch.autograd.grad(
@@ -710,6 +739,9 @@ def phase_compare_bwd(peaks):
               f"K2/K3 disagree with flash_bwd_reference at {row}")
         check(max(ref_errs.values()) <= TOL_BWD_REF_NORM,
               f"flash_bwd_reference disagrees with autograd at {row}")
+        check(d_err <= TOL_DELTA,
+              f"K2's delta disagrees with rowsum(dO * O) at {row}")
+        check(same_dq, f"two K2 calls on the same inputs differ at {shape}")
         check(same, f"two K3 calls on the same inputs differ at {shape}")
         results[(tuple(shape), row["dtype"], causal)] = row
         del q, k, v, do, o, lse, ref, delta
@@ -934,6 +966,9 @@ def main() -> int:
     for name, key, grads, line in (("flash_bwd_dq", "dq", ("dq",), 233),
                                    ("flash_bwd_dkv", "dkv", ("dk", "dv"),
                                     280)):
+        extra = {"max_delta_err": max(r["delta_err"]
+                                      for r in compared_bwd.values())} \
+            if name == "flash_bwd_dq" else {}
         kernels.append({
             "name": name, "route": "cuda",
             "design": kernel_design(designs, name),
@@ -944,11 +979,10 @@ def main() -> int:
             "max_abs_err": max(bwd_row["max_abs_err"][g] for g in grads),
             "max_err": max(r["max_norm_err"][g] for r in compared_bwd.values()
                            for g in grads),
-            "ms": bwd_row[key]["ms"],
-            # one plain call, and one SDPA backward, compute dq, dk and dv
-            "plain_ms": bwd_row["plain_ms"],
+            "ms": bwd_row[key]["ms"], "plain_ms": bwd_row[key]["plain_ms"],
             "bound_ms": bwd_row[key]["bound_ms"],
             "bound_by": bwd_row[key]["bound_by"],
+            # one SDPA backward computes dq, dk and dv together
             "library_ms": bwd_row["library_ms"],
             "shape": bwd_row["shape"], "dtype": bwd_row["dtype"],
             "llama_shape": {
@@ -956,6 +990,7 @@ def main() -> int:
                 "bound_ms": bwd_llama[key]["bound_ms"],
                 "bound_by": bwd_llama[key]["bound_by"],
                 "library_ms": bwd_llama["library_ms"]},
+            **extra,
         })
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

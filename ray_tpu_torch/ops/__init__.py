@@ -8,6 +8,8 @@ plain version. The kernels are built at first use (``_kernels.build``).
 from .attention import (  # noqa: F401
     DEFAULT_MASK_VALUE,
     flash_attention,
+    flash_bwd_dkv_reference,
+    flash_bwd_dq_reference,
     flash_bwd_reference,
     mha_reference,
 )

@@ -51,7 +51,7 @@ _SIGNATURES = {
     "flash_fwd": ("ray_tpu_torch_flash_fwd",
                   [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _P]),
     "flash_bwd_dq": ("ray_tpu_torch_flash_bwd_dq",
-                     [_P, _P, _P, _P, _P, _P, _P,
+                     [_P, _P, _P, _P, _P, _P, _P, _P,
                       _I, _I, _I, _I, _I, _F, _I, _P]),
     "flash_bwd_dkv": ("ray_tpu_torch_flash_bwd_dkv",
                       [_P, _P, _P, _P, _P, _P, _P, _P,
@@ -220,39 +220,44 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return o, lse
 
 
-def _bwd_args(name, q, k, v, do, lse, delta):
-    b, h, s, d = _check_attention(name, {"q": q, "k": k, "v": v, "do": do},
-                                  {"lse": lse, "delta": delta})
-    return (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-            lse.data_ptr(), delta.data_ptr()), (b * h, s, d)
-
-
 def flash_bwd_dq(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                 do: torch.Tensor, lse: torch.Tensor, delta: torch.Tensor,
-                 causal: bool, scale: float) -> torch.Tensor:
-    """dQ on the card (K2): q, k, v, do [B, H, S, D]; lse (from
-    ``flash_fwd``) and delta = rowsum(do * o), f32 [B, H, S]."""
-    ptrs, (bh, s, d) = _bwd_args("flash_bwd_dq", q, k, v, do, lse, delta)
+                 o: torch.Tensor, do: torch.Tensor, lse: torch.Tensor,
+                 causal: bool, scale: float
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """dQ on the card (K2): q, k, v, the forward's output o and its
+    gradient do [B, H, S, D], lse (from ``flash_fwd``) f32 [B, H, S] ->
+    (dq, delta). The kernel computes delta = rowsum(do * o), f32
+    [B, H, S], on the way and returns it for ``flash_bwd_dkv``."""
+    b, h, s, d = _check_attention(
+        "flash_bwd_dq", {"q": q, "k": k, "v": v, "o": o, "do": do},
+        {"lse": lse})
     dq = torch.empty_like(q)
+    delta = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
     if s == 0:
-        return dq
-    _launch("flash_bwd_dq", *ptrs, dq.data_ptr(), bh, s, d,
-            _FLASH_DTYPES[q.dtype], int(bool(causal)), float(scale),
-            _device_index(q), torch.cuda.current_stream(q.device).cuda_stream)
-    return dq
+        return dq, delta
+    _launch("flash_bwd_dq", q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            o.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+            dq.data_ptr(), b * h, s, d, _FLASH_DTYPES[q.dtype],
+            int(bool(causal)), float(scale), _device_index(q),
+            torch.cuda.current_stream(q.device).cuda_stream)
+    return dq, delta
 
 
 def flash_bwd_dkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   do: torch.Tensor, lse: torch.Tensor, delta: torch.Tensor,
                   causal: bool, scale: float
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """dK and dV on the card (K3), from the same inputs as
-    ``flash_bwd_dq``."""
-    ptrs, (bh, s, d) = _bwd_args("flash_bwd_dkv", q, k, v, do, lse, delta)
+    """dK and dV on the card (K3): q, k, v, do [B, H, S, D]; lse and the
+    delta that ``flash_bwd_dq`` returned, f32 [B, H, S]."""
+    b, h, s, d = _check_attention(
+        "flash_bwd_dkv", {"q": q, "k": k, "v": v, "do": do},
+        {"lse": lse, "delta": delta})
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     if s == 0:
         return dk, dv
-    _launch("flash_bwd_dkv", *ptrs, dk.data_ptr(), dv.data_ptr(), bh, s, d,
-            _FLASH_DTYPES[q.dtype], int(bool(causal)), float(scale),
-            _device_index(q), torch.cuda.current_stream(q.device).cuda_stream)
+    _launch("flash_bwd_dkv", q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dk.data_ptr(),
+            dv.data_ptr(), b * h, s, d, _FLASH_DTYPES[q.dtype],
+            int(bool(causal)), float(scale), _device_index(q),
+            torch.cuda.current_stream(q.device).cuda_stream)
     return dk, dv

@@ -6,10 +6,11 @@ kernels: the forward (``csrc/flash_fwd.cu``, which replaces the Pallas
 ``_fwd_kernel``) and, for its gradient, dQ and dK/dV
 (``csrc/flash_bwd.cu``, which replace ``_dq_kernel`` and
 ``_dkv_kernel``). A CPU tensor goes to ``mha_reference``, with autograd
-through it. ``mha_reference`` and ``flash_bwd_reference`` are the plain
-versions the kernels are held against. There is no fallback between the
-two paths: a CUDA call, forward or backward, launches the kernels or
-raises.
+through it. ``mha_reference``, ``flash_bwd_dq_reference``,
+``flash_bwd_dkv_reference`` and ``flash_bwd_reference`` (both backward
+kernels in one) are the plain versions the kernels are held against.
+There is no fallback between the two paths: a CUDA call, forward or
+backward, launches the kernels or raises.
 """
 
 from __future__ import annotations
@@ -48,35 +49,58 @@ def mha_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return torch.matmul(probs.to(v.dtype), v)
 
 
-def flash_bwd_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                        o: torch.Tensor, lse: torch.Tensor,
-                        do: torch.Tensor, causal: bool, scale: float
-                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Plain version of the backward kernels (K2 and K3): (dq, dk, dv).
-
-    The flash-2 formulas from the forward's ``lse`` (f32 [B, H, S]) and
-    ``delta = rowsum(do * o)``, in f32 and in the TPU kernels' order:
-    ``s = (q kᵀ) * scale``, the mask with ``DEFAULT_MASK_VALUE``,
-    ``p = exp(s - lse)``, ``dp = do vᵀ``, ``ds = p (dp - delta) scale``.
-    P and dS are rounded to the inputs' dtype before their products, as
-    the kernels round them; each gradient is returned in its input's
-    dtype."""
+def _scores(q, k, v, do, lse, delta, causal: bool, scale: float):
+    """P and dS in f32, in the TPU kernels' order: ``s = (q kᵀ) * scale``,
+    the mask with ``DEFAULT_MASK_VALUE``, ``p = exp(s - lse)``,
+    ``dp = do vᵀ``, ``ds = p (dp - delta) scale``."""
     seq_q, seq_k = q.shape[-2], k.shape[-2]
-    qf, kf, vf, dof = q.float(), k.float(), v.float(), do.float()
-    s = torch.matmul(qf, kf.transpose(-1, -2)) * scale
+    s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
     if causal:
         s = torch.where(_causal_mask(seq_q, seq_k, q.device), s,
                         DEFAULT_MASK_VALUE)
     p = torch.exp(s - lse.float()[..., None])
-    delta = (dof * o.float()).sum(-1)
-    dp = torch.matmul(dof, vf.transpose(-1, -2))
-    ds = p * (dp - delta[..., None]) * scale
-    p = p.to(do.dtype).float()
-    ds = ds.to(k.dtype).float()
-    dq = torch.matmul(ds, kf)
-    dk = torch.matmul(ds.transpose(-1, -2), qf)
-    dv = torch.matmul(p.transpose(-1, -2), dof)
-    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+    dp = torch.matmul(do.float(), v.float().transpose(-1, -2))
+    return p, p * (dp - delta[..., None]) * scale
+
+
+def flash_bwd_dq_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                           o: torch.Tensor, do: torch.Tensor,
+                           lse: torch.Tensor, causal: bool, scale: float
+                           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of K2 (``_kernels.flash_bwd_dq``): (dq, delta).
+
+    delta = rowsum(do * o) in f32 [B, H, S] (the plain versions' only
+    delta formula, the JAX package's own); dS rounded to k's dtype
+    before ``dq = dS k``, as the kernel rounds it; dq in q's dtype."""
+    delta = (do.float() * o.float()).sum(-1)
+    _, ds = _scores(q, k, v, do, lse, delta, causal, scale)
+    dq = torch.matmul(ds.to(k.dtype).float(), k.float())
+    return dq.to(q.dtype), delta
+
+
+def flash_bwd_dkv_reference(q: torch.Tensor, k: torch.Tensor,
+                            v: torch.Tensor, do: torch.Tensor,
+                            lse: torch.Tensor, delta: torch.Tensor,
+                            causal: bool, scale: float
+                            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of K3 (``_kernels.flash_bwd_dkv``): (dk, dv) from
+    the delta that K2 returned. P and dS rounded to the inputs' dtype
+    before their products; each gradient in its input's dtype."""
+    p, ds = _scores(q, k, v, do, lse, delta, causal, scale)
+    dk = torch.matmul(ds.to(q.dtype).float().transpose(-1, -2), q.float())
+    dv = torch.matmul(p.to(do.dtype).float().transpose(-1, -2), do.float())
+    return dk.to(k.dtype), dv.to(v.dtype)
+
+
+def flash_bwd_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        o: torch.Tensor, lse: torch.Tensor,
+                        do: torch.Tensor, causal: bool, scale: float
+                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain version of the whole backward (K2, then K3 on K2's delta):
+    (dq, dk, dv) from the forward's output ``o`` and ``lse``."""
+    dq, delta = flash_bwd_dq_reference(q, k, v, o, do, lse, causal, scale)
+    dk, dv = flash_bwd_dkv_reference(q, k, v, do, lse, delta, causal, scale)
+    return dq, dk, dv
 
 
 class _FlashAttention(torch.autograd.Function):
@@ -100,9 +124,9 @@ class _FlashAttention(torch.autograd.Function):
         # The model hands in the gradient of a transposed view; the
         # kernels take contiguous rows.
         do = grad_out.contiguous()
-        delta = (do.float() * out.float()).sum(-1)  # rowsum(dO * O), f32
-        dq = _kernels.flash_bwd_dq(q, k, v, do, lse, delta, ctx.causal,
-                                   ctx.scale)
+        # K2 computes delta = rowsum(dO * O) on the way; K3 reads it.
+        dq, delta = _kernels.flash_bwd_dq(q, k, v, out, do, lse, ctx.causal,
+                                          ctx.scale)
         dk, dv = _kernels.flash_bwd_dkv(q, k, v, do, lse, delta, ctx.causal,
                                         ctx.scale)
         return dq, dk, dv, None, None

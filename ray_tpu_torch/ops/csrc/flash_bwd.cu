@@ -1,30 +1,68 @@
 // flash_bwd.cu - attention backward (flash-2) for Hopper, sm_90a: two kernels.
 //
-// K2, dQ. Replaces: ray_tpu/ops/attention.py::_dq_kernel (launched by
-// _flash_backward). Per (batch*head) and 64-row Q tile, sweeping the K
-// tiles: P = exp(scale * Q K^T [masked] - lse), dP = dO V^T,
-// dS = P * (dP - delta) * scale, dQ = sum_k dS K.
+// K2, dQ and delta. Replaces: ray_tpu/ops/attention.py::_dq_kernel
+// (launched by _flash_backward). Per (batch*head) and row tile, sweeping
+// the K tiles: P = exp(scale * Q K^T [masked] - lse), dP = dO V^T,
+// dS = P * (dP - delta) * scale, dQ = sum_k dS K. It also computes
+// delta = rowsum(dO * O) for its rows (the JAX package leaves that to
+// XLA) and writes it out for K3.
 //
 // K3, dK and dV. Replaces: ray_tpu/ops/attention.py::_dkv_kernel (launched
 // by _flash_backward). Per (batch*head) and 128-key tile (64 at head_dim
 // 128), sweeping the Q tiles: P^T = exp(scale * K Q^T [masked] - lse), dV = sum_q P^T dO,
 // dP^T = V dO^T, dS^T = P^T * (dP^T - delta) * scale, dK = sum_q dS^T Q.
 //
-// Both take lse (m + log l, f32 [BH, S], written by flash_fwd.cu) and
-// delta = rowsum(dO * O) (f32 [BH, S], computed by the caller), and apply
-// the causal mask as the TPU kernels do: DEFAULT_MASK_VALUE
+// Both take lse (m + log l, f32 [BH, S], written by flash_fwd.cu); K3
+// takes the delta (f32 [BH, S]) that K2 wrote, so K2 runs first. Both
+// apply the causal mask as the TPU kernels do: DEFAULT_MASK_VALUE
 // (-0.7 * FLT_MAX) after scaling, then exp(s - lse) with no log2 prescale,
 // so a masked entry gives exactly 0 and never inf or NaN. P and dS are
 // rounded to the input dtype before their products, as the TPU kernels
 // round them (p.astype, ds.astype); every sum is kept in f32. No atomics:
-// each block owns its output rows (K2 a Q tile's dQ, K3 a K tile's dK and
-// dV), so the gradients are bit-identical from run to run.
+// each block owns its output rows (K2 a Q tile's dQ and delta, K3 a K
+// tile's dK and dV), so the gradients are bit-identical from run to run.
 //
 // What bounds them on an H100: at the GPT-2 shape (head_dim 64, S = 1024,
-// causal) K2 does 3 and K3 4 matrix products over the causal pairs, about
-// 304 (K2) and 338 (K3) flops per byte they must move, just above the
-// card's ~295 flops/byte ridge: at the data-sheet peaks both are bound by
-// operations, by a small margin.
+// causal) K2 does 3 matrix products over the causal pairs and moves 6
+// tensors (q, k, v, dO and O read, dq written), about 253 flops per byte,
+// under the card's ~295 flops/byte ridge: bound by bytes. K3 does 4
+// products over the same 6 tensors, about 338 flops per byte: bound by
+// operations, by a small margin. At head_dim 128 and S = 2048 both are
+// bound by operations.
+//
+// K2, bf16 (K3's mirror image: it holds Q and dO and streams K and V):
+// one block of one consumer warpgroup (64 query rows) and a producer warp
+// per (bh, row tile); row tiles are issued last-first, so the long causal
+// rows start early.
+//   * The producer warp loads Q and dO once by TMA (cp.async.bulk.tensor)
+//     and then keeps the 64-key K and V tiles of the sweep (which stops
+//     at the diagonal when causal) in flight by TMA in a ring of kDqStages
+//     stages, each guarded by a full/empty mbarrier pair. No __syncthreads
+//     brackets a copy.
+//   * Delta: while those loads are in flight, each consumer thread reads
+//     its two rows' lse and, from global memory, a quarter of each row of
+//     dO and O (the four threads of a row's quad split the columns, then
+//     add their sums by shuffles), so delta lands in the accumulator's row
+//     layout with no swizzled shared-memory read. It stays in registers
+//     for the sweep and is written out once.
+//   * All three products run on wgmma.mma_async: S = Q K^T and dP = dO V^T
+//     with both operands from shared memory, K-major as stored; dQ += dS K
+//     with dS from registers (it comes out of the first two products in
+//     the A-fragment layout) and the K tile read MN-major through the
+//     descriptor. Nothing is staged transposed. The mask runs only on
+//     tiles that cross the diagonal or S.
+//   * Registers: a consumer thread holds dQ (D/2 f32), S and dP of a
+//     64-key tile (64) and dS packed (16). A block is 160 threads, so an
+//     SM holds three blocks below head_dim 128 (at most 136 registers a
+//     thread; ptxas uses 107-122) and two at 128 (ptxas uses 157), and
+//     the blocks' warpgroups overlap one another's products and softmax. A
+//     block of two warpgroups (128 rows, one block an SM, K and V loaded
+//     once for twice the rows) measured about 10% slower on an H100 at
+//     head_dim 64 and no faster at 128 (PERF.md).
+//   * Ragged S: TMA fills Q and dO rows >= S and K and V rows >= S with
+//     zeros (3-D maps end at each head's S); keys >= S get the mask value,
+//     rows >= S get zero lse and delta, and neither their dQ nor their
+//     delta is stored.
 //
 // K3, bf16 (the FlashAttention-3 backward layout without dQ): one block of
 // consumer warpgroups, 64 keys each, and a producer warp per (bh, key
@@ -55,18 +93,14 @@
 //     each head's S) and the producer stores zero lse and delta for
 //     queries >= S. Those queries get the mask value, so they add exactly
 //     0; keys >= S are not stored.
-//   * Tiles are swizzled by row width (32B at head_dim 16, 64B at 32, 128B
-//     at 64; two 64-column boxes a tile at 128): see hopper.cuh.
+//   * Tiles of both kernels are swizzled by row width (32B at head_dim 16,
+//     64B at 32, 128B at 64; two 64-column boxes a tile at 128): see
+//     hopper.cuh.
 //
-// K2 (bf16, unchanged) and the f32 instantiations of both: grid
-// (ceil(S/64), B*H), one block of 4 warps, 16 rows per warp. K2 keeps its
-// rows' Q and dO fragments, lse and delta in registers for the whole K
-// sweep (which stops at the diagonal when causal) and issues Q tiles
-// last-first. It issues mma.sync and stages K and V per 64-row tile in
-// shared memory, row-major for S and dP and transposed for dQ += dS K
-// (rows padded by 8 elements against bank conflicts); dS never leaves
-// registers. The f32 kernels use SIMT FMAs (no TF32), two threads per
-// row; they check the algorithm on the card apart from bf16.
+// The f32 instantiations of both: grid (ceil(S/64), B*H), one block of 4
+// warps, SIMT FMAs (no TF32), two threads per row; they check the
+// algorithm on the card apart from bf16. K2's f32 kernel computes and
+// writes delta as the bf16 one does, so both dtypes keep one C contract.
 //
 // C interface (loaded with ctypes): ray_tpu_torch_flash_bwd_dq(...) and
 // ray_tpu_torch_flash_bwd_dkv(...) return cudaGetLastError() after the
@@ -77,192 +111,225 @@
 #include <math.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 #include "hopper.cuh"
 
 namespace {
 
-constexpr int kBlockQ = 64;  // Q rows per tile
+constexpr int kBlockQ = 64;  // Q rows per tile (f32 kernels)
 constexpr int kBlockK = 64;  // K rows per tile (== kBlockQ: causal tile skips)
 constexpr int kThreads = 128;
-constexpr int kPad = 8;      // bf16 elements of row padding in shared memory
 constexpr float kMaskValue = -0.7f * 3.402823466e38f;  // DEFAULT_MASK_VALUE
 
 typedef __nv_bfloat16 bf16;
-
-__device__ __forceinline__ uint32_t ld32(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 p = __floats2bfloat162_rn(lo, hi);  // .x (low half) = lo
   return *reinterpret_cast<uint32_t*>(&p);
 }
 
-// d += a * b for one 16x8x16 tile: a is 16x16 row-major, b 16x8 col-major.
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// Loads the A fragments of 16 rows (row0 and row0 + 8 per lane) of a
-// row-major [seq, D] matrix; rows >= seq read as zero.
-template <int D>
-__device__ __forceinline__ void load_a_rows(uint32_t (&f)[D / 16][4],
-                                            const bf16* m, int row0, int seq,
-                                            int t) {
-  const int row1 = row0 + 8;
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    const int c = kk * 16 + 2 * t;
-    const bf16* p0 = m + (size_t)row0 * D + c;
-    const bf16* p1 = m + (size_t)row1 * D + c;
-    f[kk][0] = row0 < seq ? ld32(p0) : 0u;
-    f[kk][1] = row1 < seq ? ld32(p1) : 0u;
-    f[kk][2] = row0 < seq ? ld32(p0 + 8) : 0u;
-    f[kk][3] = row1 < seq ? ld32(p1 + 8) : 0u;
-  }
-}
-
-// Stages 64 rows [r0, r0 + 64) of two row-major [seq, D] matrices into
-// shared memory, each both row-major (stride D + kPad) and, where the
-// transposed pointer is given, transposed (stride 64 + kPad). Rows >= seq
-// are zero.
-template <int D>
-__device__ __forceinline__ void stage_tile(const bf16* a, const bf16* b,
-                                           int r0, int seq, bf16* a_rows,
-                                           bf16* b_rows, bf16* a_t,
-                                           bf16* b_t) {
-  constexpr int kRow = D + kPad, kCol = 64 + kPad, kVec = D / 8;
-  for (int i = threadIdx.x; i < 64 * kVec; i += kThreads) {
-    const int r = i / kVec, c = (i % kVec) * 8;
-    uint4 av = make_uint4(0u, 0u, 0u, 0u), bv = av;
-    if (r0 + r < seq) {
-      const size_t off = (size_t)(r0 + r) * D + c;
-      av = *reinterpret_cast<const uint4*>(a + off);
-      bv = *reinterpret_cast<const uint4*>(b + off);
-    }
-    if (a_rows != nullptr) *reinterpret_cast<uint4*>(&a_rows[r * kRow + c]) = av;
-    if (b_rows != nullptr) *reinterpret_cast<uint4*>(&b_rows[r * kRow + c]) = bv;
-    const bf16* ae = reinterpret_cast<const bf16*>(&av);
-    const bf16* be = reinterpret_cast<const bf16*>(&bv);
-#pragma unroll
-    for (int e = 0; e < 8; ++e) {
-      if (a_t != nullptr) a_t[(c + e) * kCol + r] = ae[e];
-      if (b_t != nullptr) b_t[(c + e) * kCol + r] = be[e];
-    }
-  }
-}
-
 // ---------------------------------------------------------------------------
-// bf16: tensor cores.
-// Fragment layout of mma.m16n8k16 (g = lane / 4, t = lane % 4):
-//   A a0:(g, 2t..2t+1) a1:(g+8, 2t..) a2:(g, 2t+8..) a3:(g+8, 2t+8..)
-//   B b0:(k 2t..2t+1, n g) b1:(k 2t+8.., n g)
-//   C c0,c1:(g, 2t, 2t+1) c2,c3:(g+8, 2t, 2t+1)
-// Two C tiles of 8 columns each (columns 16kk..16kk+15) pack into one A
-// fragment of depth 16: a0 = c[0][0..1], a1 = c[0][2..3], a2 = c[1][0..1],
-// a3 = c[1][2..3].
+// K2 bf16: warp-specialised, TMA ring, wgmma. One block per (bh, 64-row
+// Q tile): one consumer warpgroup, then the producer warp.
 // ---------------------------------------------------------------------------
-template <int D>
-constexpr size_t dq_bf16_smem() {  // ks, vs [64][D + kPad]; kt [D][64 + kPad]
-  return sizeof(bf16) * (2 * (size_t)kBlockK * (D + kPad) + (size_t)D * (kBlockK + kPad));
-}
+constexpr int kDqRows = 64;   // query rows per block: one consumer warpgroup
+constexpr int kDqKeys = 64;   // keys per K/V tile (== kDqRows: causal tile skips)
+constexpr int kDqStages = 2;  // K/V ring depth
+using DqRoles = hopper::WarpRoles<1>;
 
 template <int D>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dq_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                         const bf16* __restrict__ v, const bf16* __restrict__ dout,
-                         const float* __restrict__ lse,
-                         const float* __restrict__ delta, bf16* __restrict__ dq,
-                         int seq, float scale, int causal) {
-  constexpr int kRow = D + kPad, kCol = kBlockK + kPad;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* ks = reinterpret_cast<bf16*>(smem_raw);  // [key][d]
-  bf16* vs = ks + kBlockK * kRow;                // [key][d]
-  bf16* kt = vs + kBlockK * kRow;                // [d][key]
+struct DqSmem {
+  using Tile = hopper::Tile<D, 64>;  // a Q, dO, K or V tile
+  static constexpr int kQ = 0;
+  static constexpr int kDO = kQ + Tile::kBytes;
+  static constexpr int kK = kDO + Tile::kBytes;               // [kDqStages]
+  static constexpr int kV = kK + kDqStages * Tile::kBytes;    // [kDqStages]
+  static constexpr int kBar = kV + kDqStages * Tile::kBytes;  // q, full[], empty[]
+  static constexpr int kBytes = kBar + 8 * (1 + 2 * kDqStages);
+  static constexpr int kAlloc = kBytes + 1024;  // room to align the base
+  // Blocks an SM the registers allow (see the note at the top).
+  static constexpr int kBlocksPerSM = D == 128 ? 2 : 3;
+};
 
-  const int qtile = gridDim.x - 1 - blockIdx.x;
-  const int q0 = qtile * kBlockQ;
-  const size_t base = (size_t)blockIdx.y * seq * D;
-  const size_t rbase = (size_t)blockIdx.y * seq;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane / 4, t = lane % 4;
-  const int row0 = q0 + warp * 16 + g;
-  const int row1 = row0 + 8;
-
-  uint32_t qf[D / 16][4], df[D / 16][4];
-  load_a_rows<D>(qf, q + base, row0, seq, t);
-  load_a_rows<D>(df, dout + base, row0, seq, t);
-  const float lse0 = row0 < seq ? lse[rbase + row0] : 0.f;
-  const float lse1 = row1 < seq ? lse[rbase + row1] : 0.f;
-  const float dl0 = row0 < seq ? delta[rbase + row0] : 0.f;
-  const float dl1 = row1 < seq ? delta[rbase + row1] : 0.f;
-
-  float acc[D / 8][4];
+// rowsum(dO * O) of row `row` of a [seq, D] head in f32: each thread of the
+// row's quad (t = 0..3) sums D/4 columns with 8- or 16-byte loads, then the
+// quad adds its four sums. A row >= seq gives 0. Every lane calls it (the
+// shuffles).
+template <int D>
+__device__ __forceinline__ float row_delta(const bf16* dout, const bf16* o, int row,
+                                           int seq, int t) {
+  constexpr int kCols = D / 4;                 // columns per thread
+  constexpr int kVec = kCols < 8 ? kCols : 8;  // bf16 per load
+  using Vec = typename std::conditional<kVec == 8, uint4, uint2>::type;
+  float s = 0.f;
+  if (row < seq) {
+    const size_t off = (size_t)row * D + t * kCols;
 #pragma unroll
-  for (int j = 0; j < D / 8; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
-
-  const int all_tiles = (seq + kBlockK - 1) / kBlockK;
-  const int n_tiles = causal ? min(all_tiles, qtile + 1) : all_tiles;
-  for (int kti = 0; kti < n_tiles; ++kti) {
-    const int k0 = kti * kBlockK;
-    __syncthreads();  // the previous tile's readers are done
-    stage_tile<D>(k + base, v + base, k0, seq, ks, vs, kt, nullptr);
-    __syncthreads();
-
+    for (int c = 0; c < kCols; c += kVec) {
+      const Vec xv = *reinterpret_cast<const Vec*>(dout + off + c);
+      const Vec yv = *reinterpret_cast<const Vec*>(o + off + c);
+      const __nv_bfloat162* x2 = reinterpret_cast<const __nv_bfloat162*>(&xv);
+      const __nv_bfloat162* y2 = reinterpret_cast<const __nv_bfloat162*>(&yv);
 #pragma unroll
-    for (int kk = 0; kk < kBlockK / 16; ++kk) {  // 16 keys at a time
-      float s[2][4], dp[2][4];
-#pragma unroll
-      for (int jj = 0; jj < 2; ++jj) {
-        const int j = 2 * kk + jj;
-        s[jj][0] = s[jj][1] = s[jj][2] = s[jj][3] = 0.f;
-        dp[jj][0] = dp[jj][1] = dp[jj][2] = dp[jj][3] = 0.f;
-#pragma unroll
-        for (int dd = 0; dd < D / 16; ++dd) {
-          const bf16* kr = &ks[(j * 8 + g) * kRow + dd * 16 + 2 * t];
-          mma_bf16(s[jj], qf[dd], ld32(kr), ld32(kr + 8));
-          const bf16* vr = &vs[(j * 8 + g) * kRow + dd * 16 + 2 * t];
-          mma_bf16(dp[jj], df[dd], ld32(vr), ld32(vr + 8));
-        }
+      for (int i = 0; i < kVec / 2; ++i) {
+        const float2 x = __bfloat1622float2(x2[i]), y = __bfloat1622float2(y2[i]);
+        s = fmaf(x.x, y.x, s);  // a bf16 product is exact in f32
+        s = fmaf(x.y, y.y, s);
       }
-      // dS = P * (dP - delta) * scale, with P from the saved lse.
+    }
+  }
+  s += __shfl_xor_sync(0xffffffffu, s, 1);
+  return s + __shfl_xor_sync(0xffffffffu, s, 2);
+}
+
+template <int D>
+__global__ void __launch_bounds__(DqRoles::kThreads, DqSmem<D>::kBlocksPerSM)
+flash_bwd_dq_bf16_kernel(const __grid_constant__ CUtensorMap qmap,
+                         const __grid_constant__ CUtensorMap kmap,
+                         const __grid_constant__ CUtensorMap vmap,
+                         const __grid_constant__ CUtensorMap domap,
+                         const bf16* __restrict__ o, const bf16* __restrict__ dout,
+                         const float* __restrict__ lse, float* __restrict__ delta,
+                         bf16* __restrict__ dq, int seq, float scale, int causal) {
+  using L = DqSmem<D>;
+  using Tile = typename L::Tile;
+  extern __shared__ __align__(1024) unsigned char wg_smem[];
+  const uint32_t base = (hopper::smem_addr(wg_smem) + 1023u) & ~1023u;
+  const uint32_t q_bar = base + L::kBar;
+  auto full_bar = [&](int s) { return q_bar + 8u * (1 + s); };
+  auto empty_bar = [&](int s) { return q_bar + 8u * (1 + kDqStages + s); };
+
+  const int qtile = gridDim.x - 1 - blockIdx.x;  // the longest rows first
+  const int q0 = qtile * kDqRows;
+  const int bh = blockIdx.y;
+  const int all_tiles = (seq + kDqKeys - 1) / kDqKeys;
+  const int n_tiles = causal ? min(all_tiles, qtile + 1) : all_tiles;
+
+  if (threadIdx.x == 0) {
+    hopper::mbar_init(q_bar, 1);
+    for (int s = 0; s < kDqStages; ++s) {
+      hopper::mbar_init(full_bar(s), 1);
+      hopper::mbar_init(empty_bar(s), DqRoles::kConsumerWarps);
+    }
+    hopper::mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= DqRoles::kConsumerThreads) {
+    // Producer warp: one thread loads Q and dO, then keeps the ring full.
+    if (threadIdx.x == DqRoles::kConsumerThreads) {
+      hopper::mbar_expect_tx(q_bar, 2 * Tile::kBytes);
+      Tile::load(&qmap, base + L::kQ, q_bar, q0, bh);
+      Tile::load(&domap, base + L::kDO, q_bar, q0, bh);
+      for (int kt = 0; kt < n_tiles; ++kt) {
+        const int s = kt % kDqStages;
+        hopper::mbar_wait(empty_bar(s), ((kt / kDqStages) & 1) ^ 1);
+        hopper::mbar_expect_tx(full_bar(s), 2 * Tile::kBytes);
+        Tile::load(&kmap, base + L::kK + s * Tile::kBytes, full_bar(s), kt * kDqKeys, bh);
+        Tile::load(&vmap, base + L::kV + s * Tile::kBytes, full_bar(s), kt * kDqKeys, bh);
+      }
+    }
+  } else {
+    // The consumer warpgroup: 64 query rows, dQ in registers.
+    const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+    const int g = lane / 4, t = lane % 4;
+    const int row0 = q0 + warp * 16 + g;
+    const int row1 = row0 + 8;
+    const size_t rows = (size_t)bh * seq;  // this head's first row
+    const size_t hbase = rows * D;
+
+    // lse and delta of this thread's two rows, while the producer's loads
+    // are in flight; rows >= seq get 0 and are not stored.
+    const float lse0 = row0 < seq ? lse[rows + row0] : 0.f;
+    const float lse1 = row1 < seq ? lse[rows + row1] : 0.f;
+    const float dl0 = row_delta<D>(dout + hbase, o + hbase, row0, seq, t);
+    const float dl1 = row_delta<D>(dout + hbase, o + hbase, row1, seq, t);
+    if (t == 0) {
+      if (row0 < seq) delta[rows + row0] = dl0;
+      if (row1 < seq) delta[rows + row1] = dl1;
+    }
+
+    float dqa[D / 2];
 #pragma unroll
-      for (int jj = 0; jj < 2; ++jj) {
+    for (int i = 0; i < D / 2; ++i) dqa[i] = 0.f;
+
+    hopper::mbar_wait(q_bar, 0);
+    for (int kt = 0; kt < n_tiles; ++kt) {
+      const int s = kt % kDqStages;
+      const int k0 = kt * kDqKeys;
+      hopper::mbar_wait(full_bar(s), (kt / kDqStages) & 1);
+      const uint32_t kb = base + L::kK + s * Tile::kBytes;
+      const uint32_t vb = base + L::kV + s * Tile::kBytes;
+
+      // S = Q K^T and dP = dO V^T, 64 rows x 64 keys each.
+      float sc[kDqKeys / 2], dp[kDqKeys / 2];
+#pragma unroll
+      for (int j = 0; j < kDqKeys / 2; ++j) sc[j] = dp[j] = 0.f;
+      hopper::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        hopper::wgmma_ss<kDqKeys>(sc, Tile::kmajor(base + L::kQ, 0, kk),
+                                  Tile::kmajor(kb, 0, kk), kk > 0);
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        hopper::wgmma_ss<kDqKeys>(dp, Tile::kmajor(base + L::kDO, 0, kk),
+                                  Tile::kmajor(vb, 0, kk), kk > 0);
+      hopper::wgmma_commit();
+      hopper::fence_regs(sc);
+      hopper::fence_regs(dp);
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs(sc);
+      hopper::fence_regs(dp);
+
+      // dS = P * (dP - delta) * scale, the mask only where the tile crosses
+      // S or the diagonal. A key >= seq is masked (P = 0) and has zero V.
+      const bool edge = k0 + kDqKeys > seq || (causal && kt == qtile);
+#pragma unroll
+      for (int j = 0; j < kDqKeys / 8; ++j) {
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
-          const int key = k0 + (2 * kk + jj) * 8 + 2 * t + (e & 1);
-          const int row = e < 2 ? row0 : row1;
-          float x = s[jj][e] * scale;
-          if (key >= seq || (causal && key > row)) x = kMaskValue;
+          float x = sc[4 * j + e] * scale;
+          if (edge) {
+            const int key = k0 + j * 8 + 2 * t + (e & 1);
+            const int row = e < 2 ? row0 : row1;
+            if (key >= seq || (causal && key > row)) x = kMaskValue;
+          }
           const float p = __expf(x - (e < 2 ? lse0 : lse1));
-          s[jj][e] = p * (dp[jj][e] - (e < 2 ? dl0 : dl1)) * scale;
+          dp[4 * j + e] = p * (dp[4 * j + e] - (e < 2 ? dl0 : dl1)) * scale;
         }
       }
-      const uint32_t a[4] = {pack_bf16(s[0][0], s[0][1]), pack_bf16(s[0][2], s[0][3]),
-                             pack_bf16(s[1][0], s[1][1]), pack_bf16(s[1][2], s[1][3])};
-      // dQ += dS K: K with the key axis as depth, from the transposed copy.
+      uint32_t da[kDqKeys / 16][4];
 #pragma unroll
-      for (int j = 0; j < D / 8; ++j) {
-        const bf16* kr = &kt[(j * 8 + g) * kCol + kk * 16 + 2 * t];
-        mma_bf16(acc[j], a, ld32(kr), ld32(kr + 8));
+      for (int kk = 0; kk < kDqKeys / 16; ++kk) {
+#pragma unroll
+        for (int r = 0; r < 4; ++r)
+          da[kk][r] = pack_bf16(dp[8 * kk + 2 * r], dp[8 * kk + 2 * r + 1]);
       }
+
+      // dQ += dS K, the key axis as depth: K read MN-major from the stage,
+      // no transposed copy.
+      hopper::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kDqKeys / 16; ++kk)
+        hopper::wgmma_rs<D>(dqa, da[kk], Tile::mnmajor(kb, kk), 1);
+      hopper::wgmma_commit();
+      hopper::fence_regs(dqa);
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs(dqa);
+      if (lane == 0) hopper::mbar_arrive(empty_bar(s));  // the stage is free
     }
-  }
 
 #pragma unroll
-  for (int j = 0; j < D / 8; ++j) {
-    const int c = j * 8 + 2 * t;
-    if (row0 < seq)
-      *reinterpret_cast<uint32_t*>(dq + base + (size_t)row0 * D + c) =
-          pack_bf16(acc[j][0], acc[j][1]);
-    if (row1 < seq)
-      *reinterpret_cast<uint32_t*>(dq + base + (size_t)row1 * D + c) =
-          pack_bf16(acc[j][2], acc[j][3]);
+    for (int j = 0; j < D / 8; ++j) {
+      const int c = j * 8 + 2 * t;
+      if (row0 < seq)
+        *reinterpret_cast<uint32_t*>(dq + hbase + (size_t)row0 * D + c) =
+            pack_bf16(dqa[4 * j + 0], dqa[4 * j + 1]);
+      if (row1 < seq)
+        *reinterpret_cast<uint32_t*>(dq + hbase + (size_t)row1 * D + c) =
+            pack_bf16(dqa[4 * j + 2], dqa[4 * j + 3]);
+    }
   }
 }
 
@@ -513,10 +580,10 @@ __device__ __forceinline__ void stage_f32(const float* a, const float* b, int r0
 template <int D>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_dq_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                        const float* __restrict__ v, const float* __restrict__ dout,
-                        const float* __restrict__ lse,
-                        const float* __restrict__ delta, float* __restrict__ dq,
-                        int seq, float scale, int causal) {
+                        const float* __restrict__ v, const float* __restrict__ o,
+                        const float* __restrict__ dout, const float* __restrict__ lse,
+                        float* __restrict__ delta, float* __restrict__ dq, int seq,
+                        float scale, int causal) {
   constexpr int kS = D + 1;
   constexpr int kHalf = D / 2;
   constexpr int kCols = kBlockK / 2;  // keys scored per thread per tile
@@ -535,7 +602,16 @@ flash_bwd_dq_f32_kernel(const float* __restrict__ q, const float* __restrict__ k
 
   stage_f32<D>(q + base, dout + base, q0, seq, qs, dos);
   const float lse_r = row < seq ? lse[rbase + row] : 0.f;
-  const float dl_r = row < seq ? delta[rbase + row] : 0.f;
+  // delta = rowsum(dO * O): each thread of the row's pair sums its half of
+  // the columns from global memory, the pair adds the two.
+  float dl_r = 0.f;
+  if (row < seq) {
+    const size_t off = base + (size_t)row * D + h * kHalf;
+#pragma unroll 8
+    for (int c = 0; c < kHalf; ++c) dl_r = fmaf(dout[off + c], o[off + c], dl_r);
+  }
+  dl_r += __shfl_xor_sync(0xffffffffu, dl_r, 1);
+  if (h == 0 && row < seq) delta[rbase + row] = dl_r;
 
   float acc[kHalf];
 #pragma unroll
@@ -684,27 +760,36 @@ flash_bwd_dkv_f32_kernel(const float* __restrict__ q, const float* __restrict__ 
 // its limit first.
 // ---------------------------------------------------------------------------
 struct BwdArgs {
-  const void *q, *k, *v, *dout;
-  const float *lse, *delta;
+  const void *q, *k, *v, *o, *dout;  // o: K2 only
+  const float* lse;
+  float* delta;  // written by K2, read by K3
   void *dq, *dk, *dv;
   int bh, seq, causal;
   float scale;
   cudaStream_t stream;
 };
 
+// Both dtypes of K2 take a grid of 64-row Q tiles; bf16 also takes
+// tensor maps.
 template <int D>
 cudaError_t launch_dq(const BwdArgs& a, int dtype) {
   cudaError_t err;
-  const dim3 grid((a.seq + kBlockQ - 1) / kBlockQ, a.bh);
+  const dim3 grid((a.seq + kDqRows - 1) / kDqRows, a.bh);
   if (dtype == 1) {
-    constexpr size_t smem = dq_bf16_smem<D>();
-    err = cudaFuncSetAttribute(flash_bwd_dq_bf16_kernel<D>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    CUtensorMap qmap, kmap, vmap, domap;
+    err = hopper::map_rows(&qmap, a.q, a.bh, a.seq, D, kDqRows);
+    if (err == cudaSuccess) err = hopper::map_rows(&domap, a.dout, a.bh, a.seq, D, kDqRows);
+    if (err == cudaSuccess) err = hopper::map_rows(&kmap, a.k, a.bh, a.seq, D, kDqKeys);
+    if (err == cudaSuccess) err = hopper::map_rows(&vmap, a.v, a.bh, a.seq, D, kDqKeys);
     if (err != cudaSuccess) return err;
-    flash_bwd_dq_bf16_kernel<D><<<grid, kThreads, smem, a.stream>>>(
-        static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
-        static_cast<const bf16*>(a.v), static_cast<const bf16*>(a.dout), a.lse,
-        a.delta, static_cast<bf16*>(a.dq), a.seq, a.scale, a.causal);
+    constexpr int smem = DqSmem<D>::kAlloc;
+    err = cudaFuncSetAttribute(flash_bwd_dq_bf16_kernel<D>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+    flash_bwd_dq_bf16_kernel<D><<<grid, DqRoles::kThreads, smem, a.stream>>>(
+        qmap, kmap, vmap, domap, static_cast<const bf16*>(a.o),
+        static_cast<const bf16*>(a.dout), a.lse, a.delta, static_cast<bf16*>(a.dq), a.seq,
+        a.scale, a.causal);
   } else {
     constexpr size_t smem = f32_smem<D>();
     err = cudaFuncSetAttribute(flash_bwd_dq_f32_kernel<D>,
@@ -712,8 +797,9 @@ cudaError_t launch_dq(const BwdArgs& a, int dtype) {
     if (err != cudaSuccess) return err;
     flash_bwd_dq_f32_kernel<D><<<grid, kThreads, smem, a.stream>>>(
         static_cast<const float*>(a.q), static_cast<const float*>(a.k),
-        static_cast<const float*>(a.v), static_cast<const float*>(a.dout), a.lse,
-        a.delta, static_cast<float*>(a.dq), a.seq, a.scale, a.causal);
+        static_cast<const float*>(a.v), static_cast<const float*>(a.o),
+        static_cast<const float*>(a.dout), a.lse, a.delta, static_cast<float*>(a.dq), a.seq,
+        a.scale, a.causal);
   }
   return cudaGetLastError();
 }
@@ -778,32 +864,49 @@ cudaError_t prepare(BwdArgs& a, int bh, int seq, int device, void* stream) {
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. q, k, v, dout, dq: contiguous
-// [bh, seq, head_dim] of that dtype; lse, delta: f32 [bh, seq]. Returns a
-// cudaError_t (0 = launched).
+// dtype: 0 = float32, 1 = bfloat16. q, k, v, o, dout, dq: contiguous
+// [bh, seq, head_dim] of that dtype; lse (read) and delta (written:
+// rowsum(dout * o)): f32 [bh, seq]. Returns a cudaError_t (0 = launched).
 extern "C" int ray_tpu_torch_flash_bwd_dq(const void* q, const void* k, const void* v,
-                                          const void* dout, const void* lse,
-                                          const void* delta, void* dq, int bh, int seq,
+                                          const void* o, const void* dout, const void* lse,
+                                          void* delta, void* dq, int bh, int seq,
                                           int head_dim, int dtype, int causal,
                                           float scale, int device, void* stream) {
-  BwdArgs a = {q, k, v, dout, static_cast<const float*>(lse),
-               static_cast<const float*>(delta), dq, nullptr, nullptr, 0, 0, causal, scale,
-               nullptr};
+  BwdArgs a = {};
+  a.q = q;
+  a.k = k;
+  a.v = v;
+  a.o = o;
+  a.dout = dout;
+  a.lse = static_cast<const float*>(lse);
+  a.delta = static_cast<float*>(delta);
+  a.dq = dq;
+  a.causal = causal;
+  a.scale = scale;
   cudaError_t err = prepare(a, bh, seq, device, stream);
   if (err != cudaSuccess) return err;
   return dispatch<launch_dq<16>, launch_dq<32>, launch_dq<64>, launch_dq<128>>(
       a, head_dim, dtype);
 }
 
-// As above; writes dk and dv, contiguous [bh, seq, head_dim] of the dtype.
+// q, k, v, dout and lse as above, delta as K2 wrote it; writes dk and dv,
+// contiguous [bh, seq, head_dim] of the dtype.
 extern "C" int ray_tpu_torch_flash_bwd_dkv(const void* q, const void* k, const void* v,
                                            const void* dout, const void* lse,
                                            const void* delta, void* dk, void* dv, int bh,
                                            int seq, int head_dim, int dtype, int causal,
                                            float scale, int device, void* stream) {
-  BwdArgs a = {q, k, v, dout, static_cast<const float*>(lse),
-               static_cast<const float*>(delta), nullptr, dk, dv, 0, 0, causal, scale,
-               nullptr};
+  BwdArgs a = {};
+  a.q = q;
+  a.k = k;
+  a.v = v;
+  a.dout = dout;
+  a.lse = static_cast<const float*>(lse);
+  a.delta = static_cast<float*>(const_cast<void*>(delta));  // read only
+  a.dk = dk;
+  a.dv = dv;
+  a.causal = causal;
+  a.scale = scale;
   cudaError_t err = prepare(a, bh, seq, device, stream);
   if (err != cudaSuccess) return err;
   return dispatch<launch_dkv<16>, launch_dkv<32>, launch_dkv<64>, launch_dkv<128>>(

@@ -1,9 +1,9 @@
 """CPU tests of chip_smoke.py's pure-Python helpers (the ptxas report, the
-attention bounds, the profiler's kernel groups, the case tables, the
-kernel designs read from machine code), and of
-chip_smoke.py and bench_kernels.py refusing to run without a card. They
-need no card: chip_smoke.py imports only the standard library at module
-level."""
+attention bounds, the delta band, the profiler's kernel groups, the case
+tables, the kernel designs read from machine code), of bench_kernels.py's
+choice of what to time, and of chip_smoke.py and bench_kernels.py
+refusing to run without a card. They need no card: chip_smoke.py and
+bench_kernels.py import only the standard library at module level."""
 
 import importlib.util
 import os
@@ -12,19 +12,20 @@ import subprocess
 import sys
 
 import pytest
+import torch
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
-def _load():
+def _load(name):
     spec = importlib.util.spec_from_file_location(
-        "chip_smoke", os.path.join(REPO, "chip_smoke.py"))
+        name, os.path.join(REPO, f"{name}.py"))
     module = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(module)
     return module
 
 
-cs = _load()
+cs = _load("chip_smoke")
 
 _FWD = ("_ZN45_GLOBAL__N__8f4ed862_12_flash_fwd_cu_5c297d6e21flash_fwd_bf16_"
         "kernelILi{d}EEEv14CUtensorMap_stS1_S1_P13__nv_bfloat16Pfifi")
@@ -43,6 +44,10 @@ def _entry(mangled: str, regs: int, spill: int = 0) -> str:
             f"ptxas info    : Used {regs} registers, used 1 barriers\n"
             f"ptxas info    : Compile time = 150.0 ms\n")
 
+
+_DQ_WG = ("_ZN45_GLOBAL__N__14df9a74_12_flash_bwd_cu_bfc9642124flash_bwd_dq_"
+          "bf16_kernelILi{d}EEEv14CUtensorMap_stS1_S1_S1_PK13__nv_bfloat16S4_"
+          "PKfPfPS2_ifi")
 
 # ptxas -v for the wgmma/TMA K1 and K3 at the four head dims, with the
 # register counts an H100 build reported.
@@ -96,6 +101,10 @@ class TestAttentionBound:
         ((16, 12, 1024, 64), (4, 6, 2), 0.0522, "operations"),  # K3
         ((8, 8, 2048, 128), (), 0.0695, "operations"),          # K1
         ((8, 8, 2048, 128), (4, 6, 2), 0.1390, "operations"),   # K3
+        # K2: 3 products; q, k, v, dO, O read, dq written; lse read and
+        # delta written
+        ((16, 12, 1024, 64), (3, 6, 2), 0.0455, "bytes"),
+        ((8, 8, 2048, 128), (3, 6, 2), 0.1043, "operations"),
     ])
     def test_model_shapes(self, shape, args, ms, by):
         bound_ms, bound_by = cs.attention_bound(
@@ -106,6 +115,61 @@ class TestAttentionBound:
         full, _ = cs.attention_bound((1, 1, 4096, 64), 2, False, 1e12, 1e18)
         half, _ = cs.attention_bound((1, 1, 4096, 64), 2, True, 1e12, 1e18)
         assert half == pytest.approx(full * 4097 / 8192)
+
+
+class TestDeltaErr:
+    """chip_smoke.delta_err: |delta - rowsum(dO * O)| over the row's sum
+    of |dO * O|."""
+
+    def _rows(self):
+        gen = torch.Generator().manual_seed(0)
+        do, o = (torch.randn(2, 3, 5, 16, generator=gen) for _ in range(2))
+        # row (0, 0, 0) cancels: delta is about 0, its magnitude is not
+        o[0, 0, 0] = 0.0
+        o[0, 0, 0, :8] = do[0, 0, 0, 8:]
+        o[0, 0, 0, 8:] = -do[0, 0, 0, :8]
+        return do, o
+
+    def test_same_sum_has_no_error(self):
+        do, o = self._rows()
+        assert cs.delta_err((do * o).sum(-1), do, o) == 0.0
+
+    def test_band_is_taken_against_the_magnitude(self):
+        do, o = self._rows()
+        prod = do * o
+        mag = prod.abs().sum(-1)
+        assert abs(float(prod[0, 0, 0].sum())) < 1e-5 * float(mag[0, 0, 0])
+        near = prod.sum(-1) + 0.5 * cs.TOL_DELTA * mag
+        far = prod.sum(-1) + 2.0 * cs.TOL_DELTA * mag
+        assert cs.delta_err(near, do, o) <= cs.TOL_DELTA
+        assert cs.delta_err(far, do, o) > cs.TOL_DELTA
+
+    def test_a_zero_row_must_give_zero(self):
+        do, o = self._rows()
+        o[1, 2, 4] = 0.0
+        delta = (do * o).sum(-1)
+        assert cs.delta_err(delta, do, o) == 0.0
+        delta[1, 2, 4] = 1e-30
+        assert cs.delta_err(delta, do, o) > cs.TOL_DELTA
+
+
+class TestBenchKernels:
+    def test_computes_delta_reads_the_wrapper_signature(self):
+        bk = _load("bench_kernels")
+
+        def this_tree(q, k, v, o, do, lse, causal, scale):
+            pass
+
+        def parent(q, k, v, do, lse, delta, causal, scale):
+            pass
+
+        assert bk.computes_delta(this_tree)
+        assert not bk.computes_delta(parent)
+
+    def test_this_tree_computes_delta(self):
+        from ray_tpu_torch.ops import _kernels
+
+        assert _load("bench_kernels").computes_delta(_kernels.flash_bwd_dq)
 
 
 class TestKernelGroup:
@@ -162,9 +226,10 @@ SASS = ("\nFatbin elf code:\n================\narch = sm_90a\n"
         "\tcode for sm_90a\n"
         + "".join(_sass(_FWD.format(d=d), _TMA, _HGMMA)
                   for d in (16, 32, 64, 128))
-        + "".join(_sass(_DQ.format(t=t, d=64), *ops) for t, ops in (
-            ("bf16", ("HMMA.16816.F32.BF16 R4, R8, R12, R4",)),
-            ("f32", ("FFMA R5, R6, R7, R5",))))
+        + "".join(_sass(_DQ_WG.format(d=d), _TMA, _HGMMA)
+                  for d in (16, 32, 64, 128))
+        + _sass(_DQ.format(t="f32", d=64), "FFMA R5, R6, R7, R5")
+        + _sass("_Z12mma_sync_genv", "HMMA.16816.F32.BF16 R4, R8, R12, R4")
         + _sass(_DKV.format(d=64), _TMA, "HMMA.16816.F32.BF16 R4, R8, R12, R4",
                 _HGMMA))
 
@@ -174,8 +239,10 @@ class TestDesigns:
         designs = cs.sass_designs(SASS)
         assert {designs[f"flash_fwd_bf16_kernel<{d}>"]
                 for d in (16, 32, 64, 128)} == {"wgmma+tma"}
-        assert designs["flash_bwd_dq_bf16_kernel<64>"] == "mma.sync"
+        assert {designs[f"flash_bwd_dq_bf16_kernel<{d}>"]
+                for d in (16, 32, 64, 128)} == {"wgmma+tma"}
         assert designs["flash_bwd_dq_f32_kernel<64>"] == "simt"
+        assert designs["_Z12mma_sync_genv"] == "mma.sync"
         # a mix that no design names shows its instructions
         assert designs["flash_bwd_dkv_bf16_kernel<64>"] \
             == "HGMMA+HMMA+UTMALDG"
@@ -183,9 +250,15 @@ class TestDesigns:
     def test_kernel_design_reads_the_bf16_instantiations(self):
         designs = cs.sass_designs(SASS)
         assert cs.kernel_design(designs, "flash_fwd") == "wgmma+tma"
-        assert cs.kernel_design(designs, "flash_bwd_dq") == "mma.sync"
+        assert cs.kernel_design(designs, "flash_bwd_dq") == "wgmma+tma"
         designs["flash_fwd_bf16_kernel<16>"] = "mma.sync"
         assert cs.kernel_design(designs, "flash_fwd") == "mma.sync,wgmma+tma"
+
+
+class TestBuildGate:
+    def test_every_attention_kernel_must_be_wgmma_tma(self):
+        assert set(cs.WGMMA_KERNELS) == {"flash_fwd", "flash_bwd_dq",
+                                         "flash_bwd_dkv"}
 
 
 class TestWithoutCard:

@@ -215,6 +215,31 @@ class TestFlashBackwardReference:
             err = float((t - r).abs().max() / r.abs().max())
             assert err <= 1e-5, err
 
+    @pytest.mark.parametrize("shape,dtype,causal", [
+        ((2, 3, 200, 32), torch.float32, True),     # ragged S
+        ((1, 2, 64, 32), torch.bfloat16, True),
+        ((2, 2, 96, 16), torch.float32, False),
+    ])
+    def test_dkv_reference_reads_the_delta_it_is_given(self, shape, dtype,
+                                                       causal):
+        q, k, v, do = (torch.from_numpy(a).to(dtype)
+                       for a in _bwd_inputs(10, shape))
+        scale = 1.0 / np.sqrt(shape[-1])
+        o = tattn.mha_reference(q, k, v, causal, scale)
+        lse = _lse(q, k, causal, scale)
+        dq, delta = tattn.flash_bwd_dq_reference(q, k, v, o, do, lse,
+                                                 causal, scale)
+        assert dq.dtype == dtype
+        assert delta.dtype == torch.float32 and delta.shape == shape[:3]
+        assert torch.equal(delta, (do.float() * o.float()).sum(-1))
+        dk, dv = tattn.flash_bwd_dkv_reference(q, k, v, do, lse, delta,
+                                               causal, scale)
+        dk2, dv2 = tattn.flash_bwd_dkv_reference(q, k, v, do, lse,
+                                                 delta + 1.0, causal, scale)
+        # dV = Pᵀ dO does not depend on delta; dK = dSᵀ Q does.
+        assert dk.dtype == dv.dtype == dtype
+        assert torch.equal(dv, dv2) and not torch.equal(dk, dk2)
+
     def test_bf16_rounds_like_the_kernels(self):
         q, k, v, do = (torch.from_numpy(a).bfloat16()
                        for a in _bwd_inputs(8, (1, 2, 64, 32)))
@@ -228,6 +253,102 @@ class TestFlashBackwardReference:
             assert 0 < err <= 3e-2, err
 
 
+def _jax_forward(q, k, v, causal, scale):
+    """The JAX package's Pallas forward (interpret mode where the caller
+    set it): (o, lse) with lse lane-replicated [B*H, S, 128]."""
+    block = jattn._pick_block(q.shape[2])
+    return jattn._flash_forward(*map(jnp.asarray, (q, k, v)), causal, scale,
+                                block, block)
+
+
+def _grad_err(out, ref) -> float:
+    """The JAX package's measure for its kernel gradients
+    (tests/test_models_ops.py): max error over max(1, max|ref|)."""
+    ref = np.asarray(ref)
+    return np.abs(_np(out) - ref).max() / max(1.0, np.abs(ref).max())
+
+
+class TestFlashBwdDqReference:
+    """``flash_bwd_dq_reference`` (the plain version of K2: dq and delta)
+    against the JAX package's Pallas ``_dq_kernel`` in interpret mode and
+    against its delta formula."""
+
+    @pytest.mark.parametrize("shape,causal", [
+        ((1, 2, 256, 64), True),
+        ((1, 2, 256, 64), False),
+        ((3, 5, 128, 32), True),
+    ])
+    def test_matches_pallas_interpret(self, monkeypatch, shape, causal):
+        monkeypatch.setenv("RAY_TPU_PALLAS_INTERPRET", "1")
+        assert jattn._kernel_ok(shape[2])
+        q, k, v, do = _bwd_inputs(9, shape)
+        scale = 1.0 / np.sqrt(shape[-1])
+        o, lse = _jax_forward(q, k, v, causal, scale)
+        block = jattn._pick_block(shape[2])
+        dq_jax, _, _ = jattn._flash_backward(
+            *map(jnp.asarray, (q, k, v)), o, lse, jnp.asarray(do), causal,
+            scale, block, block)
+        # The JAX package's delta (ray_tpu/ops/attention.py, in
+        # _flash_backward): rowsum(g * o) in f32.
+        delta_jax = np.asarray(jnp.sum(jnp.asarray(do).astype(jnp.float32)
+                                       * o.astype(jnp.float32), axis=-1))
+        o = np.array(o)
+        lse = np.array(lse)[..., 0].reshape(shape[:3])
+        dq, delta = tattn.flash_bwd_dq_reference(
+            *map(torch.from_numpy, (q, k, v, o, do, lse)), causal, scale)
+        # The JAX package's own band for its kernel gradients.
+        assert _grad_err(dq, dq_jax) <= 6e-3
+        # delta is a sum that can cancel: its band is taken against the
+        # row's sum of |dO * O| (f32 sums in two orders).
+        mag = np.abs(do * o).sum(-1)
+        assert delta.dtype == torch.float32
+        assert np.all(np.abs(_np(delta) - delta_jax) <= 1e-5 * mag)
+
+
+class TestFlashAttentionKernelPath:
+    """``_FlashAttention`` (the CUDA path of ``flash_attention``) run on CPU
+    tensors with its three kernels replaced by their plain versions: its
+    gradients equal the JAX ``flash_attention`` vjp in interpret mode, and
+    the delta K2 returns is the one K3 receives."""
+
+    @pytest.mark.parametrize("shape,causal", [
+        ((1, 2, 256, 64), True),
+        ((1, 2, 256, 64), False),
+        ((3, 5, 128, 32), True),
+    ])
+    def test_gradients_match_jax_vjp(self, monkeypatch, shape, causal):
+        monkeypatch.setenv("RAY_TPU_PALLAS_INTERPRET", "1")
+        seen = {}
+
+        def fwd(q, k, v, causal, scale, save_lse=False):
+            o = tattn.mha_reference(q, k, v, causal, scale)
+            return o, _lse(q, k, causal, scale) if save_lse else None
+
+        def dq(*args):
+            seen["dq"] = tattn.flash_bwd_dq_reference(*args)
+            return seen["dq"]
+
+        def dkv(q, k, v, do, lse, delta, causal, scale):
+            seen["delta"] = delta
+            return tattn.flash_bwd_dkv_reference(q, k, v, do, lse, delta,
+                                                 causal, scale)
+
+        monkeypatch.setattr(_kernels, "flash_fwd", fwd)
+        monkeypatch.setattr(_kernels, "flash_bwd_dq", dq)
+        monkeypatch.setattr(_kernels, "flash_bwd_dkv", dkv)
+        q, k, v, do = _bwd_inputs(11, shape)
+        scale = 1.0 / np.sqrt(shape[-1])
+        leaves = [torch.from_numpy(a).requires_grad_() for a in (q, k, v)]
+        out = tattn._FlashAttention.apply(*leaves, causal, scale)
+        grads = torch.autograd.grad(out, leaves, torch.from_numpy(do))
+        assert seen["delta"] is seen["dq"][1]
+        _, vjp = jax.vjp(
+            lambda a, b, c: jattn.flash_attention(a, b, c, causal, scale),
+            *map(jnp.asarray, (q, k, v)))
+        for t, j in zip(grads, vjp(jnp.asarray(do))):
+            assert _grad_err(t, j) <= 6e-3
+
+
 class TestKernelWrapper:
     def test_cpu_tensor_is_refused(self):
         q = torch.zeros(1, 1, 64, 64)
@@ -238,8 +359,11 @@ class TestKernelWrapper:
     def test_bwd_cpu_tensors_are_refused(self, name):
         q = torch.zeros(1, 1, 64, 64)
         rows = torch.zeros(1, 1, 64)
+        # K2 takes (q, k, v, o, do, lse), K3 (q, k, v, do, lse, delta).
+        args = {"flash_bwd_dq": (q, q, q, q, q, rows),
+                "flash_bwd_dkv": (q, q, q, q, rows, rows)}[name]
         with pytest.raises(ValueError, match="CUDA"):
-            getattr(_kernels, name)(q, q, q, q, rows, rows, True, 0.125)
+            getattr(_kernels, name)(*args, True, 0.125)
 
     def test_nothing_built_or_counted_on_import(self):
         assert _kernels._libs == {} and _kernels._fns == {}
