@@ -7,8 +7,9 @@ Run from the root of a checkout, with one CUDA card visible:
 
 It builds the port's kernels from ``ray_tpu_torch/ops/csrc`` (nvcc,
 sm_90a), holds each kernel against its plain PyTorch version on the card,
-drives the port's serving paths and its train step at GPT-2-small width,
-and prints one JSON line per phase:
+drives the port's serving paths and its train steps at full width (GPT-2
+small, the llama bench shape, ViT-B/16, the MoE decoder) and the
+ResNet-50 predictor, and prints one JSON line per phase:
 
   1. device         the card (nvidia-smi name and power limit), torch, CUDA
   2. build          kernel build seconds and ptxas's register, spill and
@@ -19,11 +20,13 @@ and prints one JSON line per phase:
                     wgmma+tma. The full compiler output and the machine
                     code go to ray_tpu_torch/_build/build_log.txt and
                     sass.txt
-  3. compare        flash_fwd (K1) vs mha_reference at the test and model
-                    shapes and at the edges of its 128-row and 128-key
-                    tiles (S = 127, 129, 255, 257; B*H = 1; more blocks
-                    than SMs), with its lse; kernel, plain and SDPA times
-                    at the two model shapes
+  3. compare        flash_fwd (K1) vs mha_reference at the test shapes,
+                    at the edges of its 128-row and 128-key tiles (S =
+                    127, 129, 255, 257; B*H = 1; more blocks than SMs)
+                    and at the attention of each model path (GPT-2
+                    small, llama, ViT-B/16's [64,12,197,64] not causal,
+                    MoE's [8,8,1024,64]), with its lse; kernel, plain
+                    and SDPA times at the model shapes
   4. compare_bwd    flash_bwd_dq (K2) and flash_bwd_dkv (K3), through the
                     autograd backward of flash_attention, vs
                     flash_bwd_reference, and that reference vs autograd
@@ -31,7 +34,7 @@ and prints one JSON line per phase:
                     K2 writes vs rowsum(dO * O); K2 and K3 each called
                     twice on the same inputs (K3 on K2's delta) must give
                     bit-identical outputs; kernel, plain, whole-backward
-                    and SDPA-backward times at the two model shapes
+                    and SDPA-backward times at the model shapes
   5. slice          GPTInferenceStage (the batch serving path that runs
                     K1): 16 prompts bucketed to T=1024, 8 greedy steps,
                     K1's launches counted over exactly that run; its
@@ -48,8 +51,27 @@ and prints one JSON line per phase:
                     param after AdamW (f32 at T=128, bf16 at ragged T=100)
   9. train_profile  torch.profiler over one train step: device ms by
                     group (K1, K2, K3 each a group) and the idle share
- 10. kernels        one entry per kernel: launches, error, times and bound
-                    at both timed shapes, and its design
+ 10. llama_train    make_llama_train_step(LlamaConfig.tpu_bench()) at B=8,
+                    S=2048, bf16, remat off (the preset): step ms,
+                    tokens/s, MFU, peak memory, the losses, launches
+ 11. llama_profile  torch.profiler over one llama step, as train_profile
+ 12. llama_vs_cpu   one llama step at tpu_bench width (GQA 8:2, head_dim
+                    128) and 2 layers, card vs CPU, as train_vs_cpu
+ 13. vit            make_vit_train_step(ViTConfig.vit_b16()) at B=64 on
+                    224x224x3 images (non-causal attention at S=197),
+                    then make_classifier on 64 images: step ms, images/s,
+                    the losses, launches per step and per call
+ 14. moe_train      make_moe_train_step(MoEConfig()) at B=8, S=1024: step
+                    ms, tokens/s, the losses, launches; then one f32 step
+                    at 2 layers, card vs CPU, with the share of tokens
+                    routed to another pair of experts
+ 15. resnet         make_predictor(ResNetConfig.resnet50()) on 64 images
+                    at 224: images/s; f32 logits of 4 images card vs CPU,
+                    and the same with TF32 convolutions, which the band
+                    must reject
+ 16. kernels        one entry per kernel: launches on each main path,
+                    error, times and bound at the four model shapes, and
+                    its design
 
 and, as its last line, {"ok": true, "device": {...}}. Any failed phase or
 comparison raises, so the script exits non-zero without the last line.
@@ -117,9 +139,27 @@ PEAKS = [
 ]
 
 
-# The two timed shapes: the GPT-2-small train and serving shape, and the
-# llama bench shape (LlamaConfig.tpu_bench() at B=8).
+# The timed shapes: the GPT-2-small train and serving shape, the llama
+# bench shape (LlamaConfig.tpu_bench() at B=8; causal), ViT-B/16's at
+# B=64 (196 patches and the CLS token; not causal) and MoEConfig()'s at
+# B=8, S=1024 (causal).
 GPT2_SHAPE, LLAMA_SHAPE = (16, 12, 1024, 64), (8, 8, 2048, 128)
+VIT_SHAPE, MOE_SHAPE = (64, 12, 197, 64), (8, 8, 1024, 64)
+# The attention each model path gives the kernels, (shape, causal), all
+# bf16: both compare phases hold K1-K3 there and time them.
+MODEL_SHAPES = [(GPT2_SHAPE, True), (LLAMA_SHAPE, True), (VIT_SHAPE, False),
+                (MOE_SHAPE, True)]
+# Model tolerances of the new families, card vs CPU on the same weights:
+# ResNet-50's f32 logits, after dividing by max|ref|: the same products
+#   summed in other orders by cuDNN's algorithms (no TF32) and the CPU's,
+#   through 53 convolutions. The phase also runs the card with TF32
+#   convolutions (inputs rounded to 10 mantissa bits, 2**-11 = 4.9e-4)
+#   and fails unless this band rejects that run.
+TOL_RESNET_F32_NORM = 1e-4
+# MoE: the share of routed tokens whose two experts differ between the
+#   card and the CPU in one f32 step (a flip needs a near-tie of the gate
+#   logits within the f32 rounding of the router's input).
+TOL_MOE_ROUTE_FLIPS = 1e-3
 
 # A kernel's design, from the tensor-core and copy instructions in its
 # machine code (cuobjdump -sass): HGMMA is wgmma, UTMALDG a TMA load, HMMA
@@ -343,10 +383,9 @@ def phase_compare(peaks):
         ((2, 3, 200, 64), torch.bfloat16, False),   # ragged S
         ((2, 4, 128, 16), torch.bfloat16, True),    # head_dim 16
         ((2, 4, 256, 128), torch.float32, True),
-        ((16, 12, 1024, 64), torch.bfloat16, True),   # GPT-2-small slice
-        ((8, 8, 2048, 128), torch.bfloat16, True),    # llama bench shape
-    ] + [(shape, torch.bfloat16, causal) for shape, causal in EDGE_CASES]
-    timed = {GPT2_SHAPE, LLAMA_SHAPE}
+    ] + [(shape, torch.bfloat16, causal)
+         for shape, causal in MODEL_SHAPES + EDGE_CASES]
+    timed = {shape for shape, _ in MODEL_SHAPES}
     results = {}
     for shape, dtype, causal in cases:
         q, k, v = (torch.randn(shape, generator=gen, device="cuda")
@@ -434,8 +473,7 @@ def phase_slice():
         out = stage(batch)  # ends in a device-to-host copy of the tokens
         return out, time.perf_counter() - t0
 
-    for name in _kernels.LAUNCHES:
-        _kernels.LAUNCHES[name] = 0
+    reset_launches()
     out, wall = timed_run()
     launches = dict(_kernels.LAUNCHES)
     walls = [wall] + [timed_run()[1] for _ in range(4)]  # not counted
@@ -623,7 +661,7 @@ def phase_compare_bwd(peaks):
     """K2 and K3 through flash_attention's autograd backward against
     flash_bwd_reference on the card; K2's delta against rowsum(dO * O);
     the reference against autograd through mha_reference in f32; times
-    at the two model shapes."""
+    at the model shapes."""
     import torch
     import torch.nn.functional as F
 
@@ -644,10 +682,8 @@ def phase_compare_bwd(peaks):
         ((2, 3, 200, 64), bf16, True),                # ragged S
         ((2, 4, 128, 16), f32, True), ((2, 4, 128, 16), bf16, True),
         ((2, 4, 256, 128), f32, True), ((2, 4, 256, 128), bf16, True),
-        ((16, 12, 1024, 64), bf16, True),   # GPT-2-small train step
-        ((8, 8, 2048, 128), bf16, True),    # llama bench shape
-    ] + [(shape, bf16, causal) for shape, causal in EDGE_CASES]
-    timed = {GPT2_SHAPE, LLAMA_SHAPE}
+    ] + [(shape, bf16, causal) for shape, causal in MODEL_SHAPES + EDGE_CASES]
+    timed = {shape for shape, _ in MODEL_SHAPES}
     results = {}
     for shape, dtype, causal in cases:
         q, k, v, do = (torch.randn(shape, generator=gen, device="cuda")
@@ -749,18 +785,90 @@ def phase_compare_bwd(peaks):
     return results
 
 
+def reset_launches() -> None:
+    from ray_tpu_torch.ops import _kernels
+
+    for name in _kernels.LAUNCHES:
+        _kernels.LAUNCHES[name] = 0
+
+
+def expected_launches(n_layers: int, remat: bool, train: bool = True
+                      ) -> dict:
+    """K1, K2 and K3 launches over one train step (or, ``train=False``,
+    one forward) of a model whose ``n_layers`` blocks each run one
+    flash_attention: K1 in every layer's forward and, under remat, again
+    when the checkpointed block is recomputed in the backward; K2 and K3
+    once a layer in the backward."""
+    if not train:
+        return {"flash_fwd": n_layers, "flash_bwd_dq": 0,
+                "flash_bwd_dkv": 0}
+    return {"flash_fwd": n_layers * (2 if remat else 1),
+            "flash_bwd_dq": n_layers, "flash_bwd_dkv": n_layers}
+
+
+def llama_param_count(cfg) -> int:
+    """Every param of a LlamaConfig's model, the embedding and the untied
+    head included, from its shapes (what bench.py counts for its MFU)."""
+    d, f, v = cfg.d_model, cfg.d_ff, cfg.vocab_size
+    kv = 2 * cfg.n_kv_heads * cfg.head_dim
+    layer = 2 * d + d * d + d * kv + d * d + 3 * d * f
+    return 2 * v * d + d + cfg.n_layers * layer
+
+
+def timed_steps(train_step, state, batch, steps: int = 5):
+    """1 warm-up step, then ``steps`` timed steps, each closed by
+    fetching the loss; the kernels' launches counted over exactly the
+    first timed step, the peak memory over the timed ones. Returns
+    (losses with the warm-up's first, step seconds, launches)."""
+    import torch
+
+    from ray_tpu_torch.ops import _kernels
+
+    state, m = train_step(state, batch)  # warm-up
+    losses = [float(m["loss"])]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    steps_s = []
+    for i in range(steps):
+        if i == 0:
+            reset_launches()
+        t0 = time.perf_counter()
+        state, m = train_step(state, batch)
+        losses.append(float(m["loss"]))  # the fetch ends the step
+        steps_s.append(time.perf_counter() - t0)
+        if i == 0:
+            launches = dict(_kernels.LAUNCHES)
+    return losses, steps_s, launches
+
+
+def check_training(phase: str, losses, launches, expected) -> None:
+    check(all(math.isfinite(x) for x in losses), f"{phase} loss {losses}")
+    check(losses[-1] < losses[0], f"{phase} loss did not fall: {losses}")
+    check(launches == expected,
+          f"{phase} launches over one step {launches}, want {expected}")
+
+
+def token_batch(vocab: int, b: int, s: int, seed: int = 0):
+    """Random tokens on the card and their next tokens (np.roll)."""
+    import numpy as np
+    import torch
+
+    tokens = np.random.default_rng(seed).integers(0, vocab, (b, s),
+                                                  dtype=np.int64)
+    return (torch.from_numpy(tokens).cuda(),
+            torch.from_numpy(np.roll(tokens, -1, 1)).cuda())
+
+
 def phase_train(peaks):
     """make_train_step(GPTConfig.gpt2_small()) at B=16, S=1024 on the
     card: 1 warm-up step, then 5 timed steps, each closed by fetching the
     loss; the kernels' launches counted over exactly the first timed
     step. Remat on (the preset), then off (what bench.py's bench_tpu
     times)."""
-    import numpy as np
     import torch
 
     from ray_tpu_torch.models import GPTConfig, make_train_step
     from ray_tpu_torch.models.convert import tree_leaves
-    from ray_tpu_torch.ops import _kernels
 
     results = {}
     b, s = 16, 1024
@@ -769,31 +877,10 @@ def phase_train(peaks):
         init_state, train_step = make_train_step(cfg)
         state = init_state(torch.Generator(device="cuda").manual_seed(0))
         n_params = sum(p.numel() for p in tree_leaves(state["params"]))
-        tokens = np.random.default_rng(0).integers(
-            0, cfg.vocab_size, (b, s), dtype=np.int64)
-        batch = (torch.from_numpy(tokens).cuda(),
-                 torch.from_numpy(np.roll(tokens, -1, 1)).cuda())
-        state, m = train_step(state, batch)  # warm-up
-        losses = [float(m["loss"])]
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        steps_s = []
-        for i in range(5):
-            if i == 0:
-                for name in _kernels.LAUNCHES:
-                    _kernels.LAUNCHES[name] = 0
-            t0 = time.perf_counter()
-            state, m = train_step(state, batch)
-            losses.append(float(m["loss"]))  # the fetch ends the step
-            steps_s.append(time.perf_counter() - t0)
-            if i == 0:
-                launches = dict(_kernels.LAUNCHES)
+        batch = token_batch(cfg.vocab_size, b, s)
+        losses, steps_s, launches = timed_steps(train_step, state, batch)
         step = statistics.median(steps_s)
-        layers = cfg.n_layers
-        # K1 runs in every layer's forward and, under remat, again when
-        # the checkpointed block is recomputed in the backward.
-        expected = {"flash_fwd": layers * (2 if remat else 1),
-                    "flash_bwd_dq": layers, "flash_bwd_dkv": layers}
+        expected = expected_launches(cfg.n_layers, remat)
         row = {"config": "gpt2_small", "remat": remat, "batch": b,
                "seq": s, "dtype": "bfloat16", "params": n_params,
                "step_ms_runs": [t * 1e3 for t in steps_s],
@@ -807,14 +894,77 @@ def phase_train(peaks):
                "losses": losses, "launches": launches,
                "expected_launches": expected}
         emit("train", **row)
-        check(all(math.isfinite(x) for x in losses), f"loss {losses}")
-        check(losses[-1] < losses[0], f"loss did not fall: {losses}")
-        check(launches == expected,
-              f"launches over one step {launches}, want {expected}")
+        check_training("train", losses, launches, expected)
         results[remat] = row
-        del state, batch, m
+        del state, batch
         torch.cuda.empty_cache()
     return results
+
+
+# (dtype, T, tolerances) of one train step card vs CPU, normalized by each
+# leaf's max |cpu|:
+# f32: the same math summed in other orders on two devices. The gradients
+#   agree to rounding; AdamW's first step moves a weight by about
+#   lr * sign(g) = 3e-4 whatever |g| is, so a gradient within rounding of 0
+#   can move its weight by up to 2 lr: the param band is lr-scale, not
+#   rounding-scale.
+# bf16 at a ragged T: every matmul output and each gradient is rounded to
+#   bf16 at other points; the params are bf16, whose ulp (2**-8 of the
+#   value) exceeds a step of 3e-4 above ~0.08, so whether a weight moves
+#   turns on rounding.
+VS_CPU_RUNS = [("float32", 128, {"loss": 1e-5, "grads": 1e-3,
+                                 "params": 1e-2}),
+               ("bfloat16", 100, {"loss": 1e-2, "grads": 5e-2,
+                                  "params": 3e-2})]
+
+
+def step_card_vs_cpu(make_step, params, batch):
+    """One train step of ``make_step(device)`` on the card and on the CPU
+    from the same CPU ``params`` and batch. Returns the two states and
+    losses as {"cuda": (state, loss), "cpu": (state, loss)}."""
+    from ray_tpu_torch.models.convert import params_to
+
+    states = {}
+    for dev in ("cuda", "cpu"):
+        init_state, train_step = make_step(dev)
+        # params_to copies to the card; the CPU state takes the
+        # originals, after the card's copy is made.
+        state = init_state(params=params_to(params, dev))
+        state, m = train_step(state, batch)
+        states[dev] = (state, float(m["loss"]))
+    return states
+
+
+def compare_states(states) -> dict:
+    """Loss, every gradient and every param after the step, card against
+    CPU, each normalized by the CPU leaf's max."""
+    import torch
+
+    from ray_tpu_torch.models.convert import tree_leaves
+
+    (card, loss_card), (cpu, loss_cpu) = states["cuda"], states["cpu"]
+    leaves_card = tree_leaves(card["params"])
+    leaves_cpu = tree_leaves(cpu["params"])
+    return {
+        "loss_card": loss_card, "loss_cpu": loss_cpu,
+        "loss_rel_err": abs(loss_card - loss_cpu) / abs(loss_cpu),
+        "grads_max_norm_err": max(_norm_err(a.grad.cpu(), b.grad, 0.0)
+                                  for a, b in zip(leaves_card, leaves_cpu)),
+        "params_max_norm_err": max(
+            _norm_err(a.detach().cpu(), b.detach(), 0.0)
+            for a, b in zip(leaves_card, leaves_cpu)),
+        "leaves": len(leaves_card),
+        "finite": all(bool(torch.isfinite(p).all()) for p in leaves_card)}
+
+
+def check_vs_cpu(phase: str, dtype: str, row: dict, tol: dict) -> None:
+    check(row["finite"], f"{phase}: non-finite params on the card ({dtype})")
+    check(row["loss_rel_err"] <= tol["loss"],
+          f"{phase}: {dtype} loss differs: {row['loss_rel_err']}")
+    check(row["grads_max_norm_err"] <= tol["grads"],
+          f"{phase}: {dtype} gradients differ: {row['grads_max_norm_err']}")
+    check(row["params_max_norm_err"] <= tol["params"],
+          f"{phase}: {dtype} params differ: {row['params_max_norm_err']}")
 
 
 def phase_train_vs_cpu():
@@ -825,23 +975,8 @@ def phase_train_vs_cpu():
     import torch
 
     from ray_tpu_torch.models import GPTConfig, gpt_init, make_train_step
-    from ray_tpu_torch.models.convert import params_to, tree_leaves
 
-    # (dtype, T, tolerances), normalized by each leaf's max |cpu|:
-    # f32: the same math summed in other orders on two devices. The
-    #   gradients agree to rounding; AdamW's first step moves a weight by
-    #   about lr * sign(g) = 3e-4 whatever |g| is, so a gradient within
-    #   rounding of 0 can move its weight by up to 2 lr: the param band is
-    #   lr-scale, not rounding-scale.
-    # bf16 at a ragged T: every matmul output and each gradient is
-    #   rounded to bf16 at other points; the params are bf16, whose ulp
-    #   (2**-8 of the value) exceeds a step of 3e-4 above ~0.08, so
-    #   whether a weight moves turns on rounding.
-    runs = [("float32", 128, {"loss": 1e-5, "grads": 1e-3,
-                              "params": 1e-2}),
-            ("bfloat16", 100, {"loss": 1e-2, "grads": 5e-2,
-                               "params": 3e-2})]
-    for dtype, t, tol in runs:
+    for dtype, t, tol in VS_CPU_RUNS:
         cfg = dataclasses.replace(GPTConfig.gpt2_small(), n_layers=2,
                                   dtype=getattr(torch, dtype))
         params = gpt_init(cfg, torch.Generator().manual_seed(2), "cpu")
@@ -849,52 +984,17 @@ def phase_train_vs_cpu():
             0, cfg.vocab_size, (2, t + 1), dtype=np.int64)
         batch = (torch.from_numpy(tokens[:, :-1]),
                  torch.from_numpy(tokens[:, 1:]))
-        states = {}
-        for dev in ("cuda", "cpu"):
-            init_state, train_step = make_train_step(cfg, device=dev)
-            # params_to copies to the card; the CPU state takes the
-            # originals, after the card's copy is made.
-            state = init_state(params=params_to(params, dev))
-            state, m = train_step(state, batch)
-            states[dev] = (state, float(m["loss"]))
-        (card, loss_card), (cpu, loss_cpu) = states["cuda"], states["cpu"]
-        leaves_card = tree_leaves(card["params"])
-        leaves_cpu = tree_leaves(cpu["params"])
-        grads = max(_norm_err(a.grad.cpu(), b.grad, 0.0)
-                    for a, b in zip(leaves_card, leaves_cpu))
-        after = max(_norm_err(a.detach().cpu(), b.detach(), 0.0)
-                    for a, b in zip(leaves_card, leaves_cpu))
-        loss_err = abs(loss_card - loss_cpu) / abs(loss_cpu)
-        finite = all(bool(torch.isfinite(p).all()) for p in leaves_card)
+        row = compare_states(step_card_vs_cpu(
+            lambda dev: make_train_step(cfg, device=dev), params, batch))
         emit("train_vs_cpu", config="gpt2_small width, 2 layers",
-             dtype=dtype, batch=2, seq=t, loss_card=loss_card,
-             loss_cpu=loss_cpu, loss_rel_err=loss_err,
-             grads_max_norm_err=grads, params_max_norm_err=after,
-             leaves=len(leaves_card), tol=tol, finite=finite)
-        check(finite, f"non-finite params on the card ({dtype})")
-        check(loss_err <= tol["loss"], f"{dtype} loss differs: {loss_err}")
-        check(grads <= tol["grads"], f"{dtype} gradients differ: {grads}")
-        check(after <= tol["params"], f"{dtype} params differ: {after}")
-        del states, card, cpu, leaves_card, leaves_cpu
+             dtype=dtype, batch=2, seq=t, tol=tol, **row)
+        check_vs_cpu("train_vs_cpu", dtype, row, tol)
         torch.cuda.empty_cache()
 
 
-def phase_train_profile():
-    """Device time by kernel group over one GPT-2-small train step (the
-    preset: remat on, B=16, S=1024), and the device's idle share of that
-    step's wall time."""
-    import numpy as np
-    import torch
-
-    from ray_tpu_torch.models import GPTConfig, make_train_step
-
-    cfg = GPTConfig.gpt2_small()
-    init_state, train_step = make_train_step(cfg)
-    state = init_state(torch.Generator(device="cuda").manual_seed(0))
-    tokens = np.random.default_rng(0).integers(
-        0, cfg.vocab_size, (16, 1024), dtype=np.int64)
-    batch = (torch.from_numpy(tokens).cuda(),
-             torch.from_numpy(np.roll(tokens, -1, 1)).cuda())
+def profile_step(train_step, state, batch, phase: str, what: str) -> None:
+    """Device time by kernel group over one train step after a warm-up
+    step, and the device's idle share of that step's wall time."""
     state, m = train_step(state, batch)  # warm-up
     float(m["loss"])
 
@@ -902,9 +1002,302 @@ def phase_train_profile():
         _, out = train_step(state, batch)
         float(out["loss"])
 
-    profile_device(one_step, "train_profile",
-                   "make_train_step, gpt2_small, remat, 16x1024, 1 step")
+    profile_device(one_step, phase, what)
+
+
+def phase_train_profile():
+    """Device time by kernel group over one GPT-2-small train step (the
+    preset: remat on, B=16, S=1024), and the device's idle share of that
+    step's wall time."""
+    import torch
+
+    from ray_tpu_torch.models import GPTConfig, make_train_step
+
+    cfg = GPTConfig.gpt2_small()
+    init_state, train_step = make_train_step(cfg)
+    state = init_state(torch.Generator(device="cuda").manual_seed(0))
+    profile_step(train_step, state, token_batch(cfg.vocab_size, 16, 1024),
+                 "train_profile",
+                 "make_train_step, gpt2_small, remat, 16x1024, 1 step")
     del state
+    torch.cuda.empty_cache()
+
+
+def phase_llama_train(peaks):
+    """make_llama_train_step(LlamaConfig.tpu_bench()) at B=8, S=2048, bf16,
+    remat off (the preset), timed as phase_train; then one step under
+    torch.profiler. MFU counts every param, the embedding and the untied
+    head included, as bench.py does."""
+    import torch
+
+    from ray_tpu_torch.models import LlamaConfig, make_llama_train_step
+    from ray_tpu_torch.models.convert import tree_leaves
+
+    cfg = LlamaConfig.tpu_bench()
+    b, s = 8, 2048
+    init_state, train_step = make_llama_train_step(cfg)
+    state = init_state(torch.Generator(device="cuda").manual_seed(0))
+    n_params = llama_param_count(cfg)
+    check(n_params == sum(p.numel() for p in tree_leaves(state["params"])),
+          "llama_param_count disagrees with the params")
+    batch = token_batch(cfg.vocab_size, b, s)
+    losses, steps_s, launches = timed_steps(train_step, state, batch)
+    step = statistics.median(steps_s)
+    expected = expected_launches(cfg.n_layers, cfg.remat)
+    row = {"config": "llama tpu_bench", "remat": cfg.remat, "batch": b,
+           "seq": s, "dtype": "bfloat16", "params": n_params,
+           "step_ms_runs": [t * 1e3 for t in steps_s],
+           "step_ms_median": step * 1e3, "tokens_per_s": b * s / step,
+           "mfu": 6 * n_params * b * s / step / peaks["bf16"],
+           "mfu_peak": f"bf16 {peaks['bf16']:.4g} FLOP/s "
+                       f"({peaks['matched']})",
+           "max_memory_allocated_gb":
+               torch.cuda.max_memory_allocated() / 1e9,
+           "losses": losses, "launches": launches,
+           "expected_launches": expected}
+    emit("llama_train", **row)
+    check_training("llama_train", losses, launches, expected)
+    profile_step(train_step, state, batch, "llama_profile",
+                 "make_llama_train_step, tpu_bench, 8x2048, 1 step")
+    del state, batch
+    torch.cuda.empty_cache()
+    return row
+
+
+def phase_llama_vs_cpu():
+    """One llama step at tpu_bench width (8 heads of 128, 2 KV heads) with
+    2 layers and B=2, card vs CPU from the same weights: the GQA gradient
+    through K2 and K3 at head_dim 128, in train_vs_cpu's bands."""
+    import numpy as np
+    import torch
+
+    from ray_tpu_torch.models import (LlamaConfig, llama_init,
+                                      make_llama_train_step)
+
+    for dtype, t, tol in VS_CPU_RUNS:
+        cfg = dataclasses.replace(LlamaConfig.tpu_bench(), n_layers=2,
+                                  dtype=getattr(torch, dtype))
+        params = llama_init(cfg, torch.Generator().manual_seed(4), "cpu")
+        tokens = np.random.default_rng(4).integers(
+            0, cfg.vocab_size, (2, t + 1), dtype=np.int64)
+        batch = (torch.from_numpy(tokens[:, :-1]),
+                 torch.from_numpy(tokens[:, 1:]))
+        row = compare_states(step_card_vs_cpu(
+            lambda dev: make_llama_train_step(cfg, device=dev), params,
+            batch))
+        emit("llama_vs_cpu", config="llama tpu_bench width, 2 layers",
+             dtype=dtype, batch=2, seq=t, tol=tol, **row)
+        check_vs_cpu("llama_vs_cpu", dtype, row, tol)
+        torch.cuda.empty_cache()
+
+
+def phase_vit():
+    """make_vit_train_step(ViTConfig.vit_b16()) at B=64 on 224x224x3
+    images, remat on (the preset), timed as phase_train; then
+    make_classifier over the trained params on 64 images: the median of
+    5 calls, each ending in the host's copy of the classes, with the
+    launches of exactly one call."""
+    import numpy as np
+    import torch
+
+    from ray_tpu_torch.models import (ViTConfig, make_classifier,
+                                      make_vit_train_step)
+    from ray_tpu_torch.ops import _kernels
+
+    cfg = ViTConfig.vit_b16()
+    b = 64
+    init_state, train_step = make_vit_train_step(cfg)
+    state = init_state(torch.Generator(device="cuda").manual_seed(0))
+    rng = np.random.default_rng(5)
+    images = rng.standard_normal(
+        (b, cfg.image_size, cfg.image_size, cfg.channels)).astype(np.float32)
+    labels = rng.integers(0, cfg.num_classes, b, dtype=np.int64)
+    batch = (torch.from_numpy(images).cuda(), torch.from_numpy(labels).cuda())
+    losses, steps_s, launches = timed_steps(train_step, state, batch)
+    step = statistics.median(steps_s)
+    expected = expected_launches(cfg.n_layers, cfg.remat)
+    seq = cfg.num_patches + 1
+    row = {"config": "vit_b16", "remat": cfg.remat, "batch": b, "seq": seq,
+           "dtype": "bfloat16", "step_ms_runs": [t * 1e3 for t in steps_s],
+           "step_ms_median": step * 1e3, "images_per_s": b / step,
+           "max_memory_allocated_gb":
+               torch.cuda.max_memory_allocated() / 1e9,
+           "losses": losses, "launches": launches,
+           "expected_launches": expected}
+    emit("vit_train", **row)
+    check_training("vit_train", losses, launches, expected)
+
+    predict = make_classifier(cfg, params=state["params"])
+    predict(images)  # warm-up
+    reset_launches()
+    t0 = time.perf_counter()
+    classes = predict(images)
+    walls = [time.perf_counter() - t0]
+    classify_launches = dict(_kernels.LAUNCHES)
+    for _ in range(4):
+        t0 = time.perf_counter()
+        predict(images)
+        walls.append(time.perf_counter() - t0)
+    wall = statistics.median(walls)
+    expected_classify = expected_launches(cfg.n_layers, cfg.remat, False)
+    emit("vit_classify", config="vit_b16", batch=b,
+         wall_ms_runs=[w * 1e3 for w in walls], wall_ms_median=wall * 1e3,
+         images_per_s=b / wall, launches=classify_launches,
+         expected_launches=expected_classify)
+    check(isinstance(classes, np.ndarray) and classes.shape == (b,)
+          and 0 <= classes.min() and classes.max() < cfg.num_classes,
+          f"classes out of range: {classes}")
+    check(classify_launches == expected_classify,
+          f"vit_classify launches {classify_launches}, "
+          f"want {expected_classify}")
+    del state, batch, predict
+    torch.cuda.empty_cache()
+    return {"vit_train": launches, "vit_classify": classify_launches}
+
+
+def record_routes(record):
+    """Wrap parallel.moe's top2_gating so that every call appends the
+    experts each token was dispatched to (the [tokens, experts] mask of
+    its kept routes, after capacity drops) to ``record``; returns the
+    original to restore."""
+    from ray_tpu_torch.parallel import moe as pmoe
+
+    original = pmoe.top2_gating
+
+    def recorded(logits, capacity):
+        dispatch, combine, aux = original(logits, capacity)
+        record.append(dispatch.any(-1).cpu())
+        return dispatch, combine, aux
+
+    pmoe.top2_gating = recorded
+    return original
+
+
+def phase_moe():
+    """make_moe_train_step(MoEConfig()) at B=8, S=1024, bf16, remat on
+    (the preset), timed as phase_train; then one f32 step at 2 layers,
+    B=2, S=64, card vs CPU from the same weights: loss, gradients and
+    params in train_vs_cpu's f32 bands, and the share of routed tokens
+    whose two experts differ."""
+    import numpy as np
+    import torch
+
+    from ray_tpu_torch.models import MoEConfig, make_moe_train_step, moe_init
+    from ray_tpu_torch.parallel import moe as pmoe
+
+    cfg = MoEConfig()
+    b, s = MOE_SHAPE[0], MOE_SHAPE[2]
+    init_state, train_step = make_moe_train_step(cfg)
+    state = init_state(torch.Generator(device="cuda").manual_seed(0))
+    batch = token_batch(cfg.vocab_size, b, s)
+    losses, steps_s, launches = timed_steps(train_step, state, batch)
+    step = statistics.median(steps_s)
+    expected = expected_launches(cfg.n_layers, cfg.remat)
+    row = {"config": "moe default", "remat": cfg.remat, "batch": b,
+           "seq": s, "dtype": "bfloat16", "experts": cfg.n_experts,
+           "step_ms_runs": [t * 1e3 for t in steps_s],
+           "step_ms_median": step * 1e3, "tokens_per_s": b * s / step,
+           "max_memory_allocated_gb":
+               torch.cuda.max_memory_allocated() / 1e9,
+           "losses": losses, "launches": launches,
+           "expected_launches": expected}
+    emit("moe_train", **row)
+    check_training("moe_train", losses, launches, expected)
+    del state, batch
+    torch.cuda.empty_cache()
+
+    tol = VS_CPU_RUNS[0][2]  # the f32 bands
+    small = dataclasses.replace(cfg, n_layers=2, dtype=torch.float32)
+    params = moe_init(small, torch.Generator().manual_seed(6), "cpu")
+    tokens = np.random.default_rng(6).integers(
+        0, small.vocab_size, (2, 65), dtype=np.int64)
+    small_batch = (torch.from_numpy(tokens[:, :-1]),
+                   torch.from_numpy(tokens[:, 1:]))
+    record = []
+    original = record_routes(record)
+    try:
+        states = step_card_vs_cpu(
+            lambda dev: make_moe_train_step(small, device=dev), params,
+            small_batch)
+    finally:
+        pmoe.top2_gating = original
+    # The card's step ran first, then the CPU's, each calling the layers
+    # in the same order (the forward, then the remat recompute).
+    half = len(record) // 2
+    card, cpu = torch.stack(record[:half]), torch.stack(record[half:])
+    flips = float((card != cpu).any(-1).float().mean())
+    dropped = float((cpu.sum(-1) < 2).float().mean())
+    cmp = compare_states(states)
+    emit("moe_vs_cpu", config="moe default width, 2 layers",
+         dtype="float32", batch=2, seq=64, tol=tol,
+         route_flip_share=flips, route_tol=TOL_MOE_ROUTE_FLIPS,
+         dropped_route_share=dropped,
+         routes_compared=int(card.shape[0] * card.shape[1]), **cmp)
+    check_vs_cpu("moe_vs_cpu", "float32", cmp, tol)
+    check(flips <= TOL_MOE_ROUTE_FLIPS,
+          f"moe_vs_cpu: {flips} of the tokens routed to other experts")
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_resnet():
+    """make_predictor(ResNetConfig.resnet50()) on 64 host images at 224:
+    images/s over the median of 5 calls, each ended by the host's copy of
+    the classes; then the f32 logits of 4 images, card vs CPU, from the
+    same weights."""
+    import numpy as np
+    import torch
+
+    from ray_tpu_torch.models import (ResNetConfig, make_predictor,
+                                      resnet_forward, resnet_init)
+    from ray_tpu_torch.models.convert import params_to
+
+    cfg = ResNetConfig.resnet50()
+    images = np.random.default_rng(7).standard_normal(
+        (64, 224, 224, 3)).astype(np.float32)
+    predict = make_predictor(cfg,
+                             generator=torch.Generator().manual_seed(7))
+    predict(images).cpu()  # warm-up: cuDNN's algorithm choice
+    walls = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        classes = predict(images).cpu()
+        walls.append(time.perf_counter() - t0)
+    wall = statistics.median(walls)
+
+    f32 = dataclasses.replace(cfg, dtype=torch.float32)
+    params = resnet_init(f32, torch.Generator().manual_seed(8), "cpu")
+    few = torch.from_numpy(images[:4])
+    card_params = params_to(params, "cuda")
+    with torch.inference_mode():
+        card = resnet_forward(card_params, few.cuda(), f32)
+        cpu = resnet_forward(params, few, f32)
+        # The control: TF32 convolutions and head, which the band must
+        # tell from f32.
+        torch.backends.cuda.matmul.allow_tf32 = True
+        torch.backends.cudnn.allow_tf32 = True
+        try:
+            tf32 = resnet_forward(card_params, few.cuda(), f32)
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = False
+            torch.backends.cudnn.allow_tf32 = False
+    err = _norm_err(card.cpu(), cpu, 0.0)
+    tf32_err = _norm_err(tf32.cpu(), cpu, 0.0)
+    same = bool(torch.equal(card.argmax(-1).cpu(), cpu.argmax(-1)))
+    emit("resnet", config="resnet50", batch=64, image_size=224,
+         dtype="bfloat16", wall_ms_runs=[w * 1e3 for w in walls],
+         wall_ms_median=wall * 1e3, images_per_s=64 / wall,
+         vs_cpu={"images": 4, "dtype": "float32", "max_norm_err": err,
+                 "tol": TOL_RESNET_F32_NORM, "argmax_equal": same,
+                 "tf32_control_max_norm_err": tf32_err})
+    check(classes.shape == (64,) and 0 <= int(classes.min())
+          and int(classes.max()) < cfg.num_classes, "classes out of range")
+    check(bool(torch.isfinite(card).all()), "non-finite ResNet logits")
+    check(err <= TOL_RESNET_F32_NORM,
+          f"ResNet-50 f32 logits card vs CPU differ by {err}")
+    check(tf32_err > TOL_RESNET_F32_NORM,
+          f"the ResNet band {TOL_RESNET_F32_NORM} passes TF32 logits "
+          f"({tf32_err}): it cannot tell them from f32")
     torch.cuda.empty_cache()
 
 
@@ -930,19 +1323,31 @@ def main() -> int:
     trained = phase_train(peaks)
     phase_train_vs_cpu()
     phase_train_profile()
+    llama = phase_llama_train(peaks)
+    phase_llama_vs_cpu()
+    vit = phase_vit()
+    moe = phase_moe()
+    phase_resnet()
 
     # Launches on each main path, each counted over exactly its run:
-    # the batch serving slice, one train step with remat (the preset) and
-    # one without.
-    by_path = {name: {"serving": serving[name],
-                      "train": trained[True]["launches"][name],
-                      "train_no_remat": trained[False]["launches"][name]}
+    # the batch serving slice, one GPT-2-small train step with remat (the
+    # preset) and one without, one llama, ViT and MoE train step each,
+    # and one ViT classifier call.
+    paths = {"serving": serving, "train": trained[True]["launches"],
+             "train_no_remat": trained[False]["launches"],
+             "llama_train": llama["launches"], **vit, "moe_train": moe}
+    by_path = {name: {path: launches[name]
+                      for path, launches in paths.items()}
                for name in serving}
     slice_row = compared[(GPT2_SHAPE, "bfloat16", True)]
     llama_row = compared[(LLAMA_SHAPE, "bfloat16", True)]
+    vit_row = compared[(VIT_SHAPE, "bfloat16", False)]
+    moe_row = compared[(MOE_SHAPE, "bfloat16", True)]
     emit("flash_fwd_llama_shape", **llama_row)
     bwd_row = compared_bwd[(GPT2_SHAPE, "bfloat16", True)]
     bwd_llama = compared_bwd[(LLAMA_SHAPE, "bfloat16", True)]
+    bwd_vit = compared_bwd[(VIT_SHAPE, "bfloat16", False)]
+    bwd_moe = compared_bwd[(MOE_SHAPE, "bfloat16", True)]
     emit("flash_bwd_llama_shape", **bwd_llama)
     kernels = [{
         "name": "flash_fwd", "route": "cuda",
@@ -957,11 +1362,14 @@ def main() -> int:
         "bound_ms": slice_row["bound_ms"], "bound_by": slice_row["bound_by"],
         "library_ms": slice_row["library_ms"],
         "shape": slice_row["shape"], "dtype": slice_row["dtype"],
-        "llama_shape": {
-            "shape": llama_row["shape"], "ms": llama_row["ms"],
-            "bound_ms": llama_row["bound_ms"],
-            "bound_by": llama_row["bound_by"],
-            "library_ms": llama_row["library_ms"]},
+        **{key: {"shape": row["shape"], "causal": row["causal"],
+                 "ms": row["ms"], "plain_ms": row["plain_ms"],
+                 "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+                 "library_ms": row["library_ms"],
+                 "max_abs_err": row["max_abs_err"]}
+           for key, row in (("llama_shape", llama_row),
+                            ("vit_shape", vit_row),
+                            ("moe_shape", moe_row))},
     }]
     for name, key, grads, line in (("flash_bwd_dq", "dq", ("dq",), 233),
                                    ("flash_bwd_dkv", "dkv", ("dk", "dv"),
@@ -985,11 +1393,16 @@ def main() -> int:
             # one SDPA backward computes dq, dk and dv together
             "library_ms": bwd_row["library_ms"],
             "shape": bwd_row["shape"], "dtype": bwd_row["dtype"],
-            "llama_shape": {
-                "shape": bwd_llama["shape"], "ms": bwd_llama[key]["ms"],
-                "bound_ms": bwd_llama[key]["bound_ms"],
-                "bound_by": bwd_llama[key]["bound_by"],
-                "library_ms": bwd_llama["library_ms"]},
+            **{shape_key: {
+                "shape": row["shape"], "causal": row["causal"],
+                "ms": row[key]["ms"], "plain_ms": row[key]["plain_ms"],
+                "bound_ms": row[key]["bound_ms"],
+                "bound_by": row[key]["bound_by"],
+                "library_ms": row["library_ms"],
+                "max_abs_err": max(row["max_abs_err"][g] for g in grads)}
+               for shape_key, row in (("llama_shape", bwd_llama),
+                                      ("vit_shape", bwd_vit),
+                                      ("moe_shape", bwd_moe))},
             **extra,
         })
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -1,7 +1,7 @@
 """ray_tpu_torch: the PyTorch/CUDA port of ray_tpu, for NVIDIA Hopper.
 
 A package beside ``ray_tpu`` that mirrors its layout (``ops``, ``models``,
-``llm``). It imports torch and numpy, never JAX and nothing of
+``llm``, ``parallel``). It imports torch and numpy, never JAX and nothing of
 ``ray_tpu``. Each Pallas kernel of the JAX package becomes a kernel
 written by hand for Hopper (``ops/csrc``), built at first use; the rest
 is plain PyTorch.

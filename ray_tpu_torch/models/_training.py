@@ -40,7 +40,8 @@ def make_train_step_for(
     those tensors. Either way the state is ``{"params", "opt_state",
     "step"}``, with the optimizer as ``opt_state``.
 
-    ``train_step(state, (tokens, targets))`` returns
+    ``train_step(state, (inputs, targets))`` (tokens and next tokens, or
+    images and labels; numpy arrays or tensors, moved to ``device``) returns
     ``(state, {"loss": loss})`` with the loss a 0-dim tensor on the device,
     not fetched. Where JAX donates the state to the step, the port
     updates the params and the optimizer's moments in place: the state
@@ -62,8 +63,8 @@ def make_train_step_for(
     def train_step(state: Dict, batch):
         opt = state["opt_state"]
         opt.zero_grad(set_to_none=True)
-        tokens, targets = (torch.as_tensor(x, device=device) for x in batch)
-        loss = loss_fn(state["params"], (tokens, targets))
+        inputs, targets = (torch.as_tensor(x, device=device) for x in batch)
+        loss = loss_fn(state["params"], (inputs, targets))
         loss.backward()
         opt.step()
         state["step"] += 1

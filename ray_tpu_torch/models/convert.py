@@ -16,8 +16,15 @@ import torch
 from .._device import DeviceLike, resolve_device
 
 
-def _to_tensor(arr, device: torch.device,
-               dtype: Optional[torch.dtype]) -> torch.Tensor:
+# Leaves that the JAX families keep in float32 whatever the model dtype:
+# the norm weights, MoE's router gate, ViT's learned positions, ResNet's
+# batch-norm terms and statistics and its head bias.
+FLOAT32_KEYS = frozenset({"ln1", "ln2", "lnf", "gate", "pos", "scale",
+                          "bias", "mean", "var", "b"})
+
+
+def _to_tensor(arr, device: torch.device, dtype: Optional[torch.dtype],
+               key: Optional[str]) -> torch.Tensor:
     arr = np.asarray(arr)
     if arr.dtype.name == "bfloat16":
         # ml_dtypes' bfloat16 is not a numpy dtype torch knows: carry the
@@ -25,17 +32,20 @@ def _to_tensor(arr, device: torch.device,
         t = torch.from_numpy(arr.view(np.uint16).copy()).view(torch.bfloat16)
     else:
         t = torch.from_numpy(arr.copy())
-    if dtype is not None and t.is_floating_point() and t.ndim >= 2:
+    if dtype is not None and t.is_floating_point() \
+            and key not in FLOAT32_KEYS:
         t = t.to(dtype)
     return t.to(device)
 
 
-def _tree_map(fn, node):
+def _tree_map(fn, node, key: Optional[str] = None):
+    """``fn(leaf, key)`` over a tree of dicts and lists, ``key`` the name
+    of the dict entry that holds the leaf (a list passes its own on)."""
     if isinstance(node, dict):
-        return {k: _tree_map(fn, v) for k, v in node.items()}
+        return {k: _tree_map(fn, v, k) for k, v in node.items()}
     if isinstance(node, (list, tuple)):
-        return type(node)(_tree_map(fn, v) for v in node)
-    return fn(node)
+        return type(node)(_tree_map(fn, v, key) for v in node)
+    return fn(node, key)
 
 
 def tree_leaves(node: Any) -> list:
@@ -52,14 +62,17 @@ def from_jax_params(params: Any, device: DeviceLike = None,
     """The JAX param dict (arrays, or numpy arrays of them) -> the same
     dict of tensors on ``device``.
 
-    ``dtype``, when given, is the type of the weight matrices (floating
-    leaves of two or more dims); vectors such as the norm weights keep
-    their own type, as ``gpt_init`` keeps them in float32."""
+    ``dtype``, when given, is the type of every floating leaf but those
+    named in ``FLOAT32_KEYS``, which keep their own type, as the init
+    functions keep them in float32 whatever the model dtype. The rule
+    goes by the leaf's key: MoE's 2-D router gate and ViT's 2-D
+    positions are float32 too."""
     device = resolve_device(device)
-    return _tree_map(lambda arr: _to_tensor(arr, device, dtype), params)
+    return _tree_map(lambda arr, key: _to_tensor(arr, device, dtype, key),
+                     params)
 
 
 def params_to(params: Any, device: DeviceLike) -> Any:
     """A param dict with every tensor moved to ``device``."""
     device = resolve_device(device)
-    return _tree_map(lambda t: t.to(device), params)
+    return _tree_map(lambda t, _: t.to(device), params)

@@ -24,6 +24,7 @@ from torch.utils.checkpoint import checkpoint
 from .._device import DeviceLike, resolve_device
 from ..ops.attention import flash_attention
 from ..ops.layers import rms_norm, rope
+from ._init import normal
 from ._training import make_train_step_for
 
 
@@ -58,14 +59,6 @@ class GPTConfig:
 # ---------------------------------------------------------------------------
 # init
 # ---------------------------------------------------------------------------
-def _normal(shape, std: float, cfg: GPTConfig, generator: torch.Generator,
-            device: torch.device) -> torch.Tensor:
-    # Drawn in f32 on the generator's device, scaled, then cast: a CPU
-    # generator gives the same weights on every device.
-    x = torch.randn(shape, generator=generator, device=generator.device)
-    return (x * std).to(device=device, dtype=cfg.dtype)
-
-
 def _layer_init(cfg: GPTConfig, generator: torch.Generator,
                 device: torch.device) -> Dict[str, torch.Tensor]:
     d, f = cfg.d_model, cfg.d_ff
@@ -74,11 +67,11 @@ def _layer_init(cfg: GPTConfig, generator: torch.Generator,
     ones = torch.ones(d, dtype=torch.float32, device=device)
     return {
         "ln1": ones,
-        "wqkv": _normal((d, 3 * d), scale, cfg, generator, device),
-        "wo": _normal((d, d), out_scale, cfg, generator, device),
+        "wqkv": normal((d, 3 * d), scale, cfg.dtype, generator, device),
+        "wo": normal((d, d), out_scale, cfg.dtype, generator, device),
         "ln2": ones.clone(),
-        "w1": _normal((d, f), scale, cfg, generator, device),
-        "w2": _normal((f, d), out_scale, cfg, generator, device),
+        "w1": normal((d, f), scale, cfg.dtype, generator, device),
+        "w2": normal((f, d), out_scale, cfg.dtype, generator, device),
     }
 
 
@@ -91,15 +84,16 @@ def gpt_init(cfg: GPTConfig, generator: torch.Generator,
     JAX weights with ``models.convert.from_jax_params`` instead."""
     device = resolve_device(device)
     params = {
-        "embed": _normal((cfg.vocab_size, cfg.d_model), cfg.d_model ** -0.5,
-                         cfg, generator, device),
+        "embed": normal((cfg.vocab_size, cfg.d_model), cfg.d_model ** -0.5,
+                        cfg.dtype, generator, device),
         "lnf": torch.ones(cfg.d_model, dtype=torch.float32, device=device),
         "layers": [_layer_init(cfg, generator, device)
                    for _ in range(cfg.n_layers)],
     }
     if not cfg.tie_embeddings:
-        params["head"] = _normal((cfg.d_model, cfg.vocab_size),
-                                 cfg.d_model ** -0.5, cfg, generator, device)
+        params["head"] = normal((cfg.d_model, cfg.vocab_size),
+                                cfg.d_model ** -0.5, cfg.dtype, generator,
+                                device)
     return params
 
 

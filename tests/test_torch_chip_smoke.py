@@ -1,11 +1,14 @@
 """CPU tests of chip_smoke.py's pure-Python helpers (the ptxas report, the
 attention bounds, the delta band, the profiler's kernel groups, the case
-tables, the kernel designs read from machine code), of bench_kernels.py's
+tables, the kernel designs read from machine code, the launches each model
+path must show and the llama param count), of bench_kernels.py's
 choice of what to time, and of chip_smoke.py and bench_kernels.py
 refusing to run without a card. They need no card: chip_smoke.py and
 bench_kernels.py import only the standard library at module level."""
 
+import dataclasses
 import importlib.util
+import math
 import os
 import shutil
 import subprocess
@@ -278,3 +281,88 @@ class TestWithoutCard:
             capture_output=True, text=True, timeout=120,
             env={**os.environ, "CUDA_VISIBLE_DEVICES": ""})
         assert run.returncode == 1 and "no CUDA device" in run.stderr
+
+
+class TestModelPaths:
+    """The pure-Python helpers of the model phases: the launches each
+    path must show, and the param count that the llama MFU divides by."""
+
+    def test_expected_launches_per_config_and_remat(self):
+        from ray_tpu_torch.models import (GPTConfig, LlamaConfig, MoEConfig,
+                                          ViTConfig)
+
+        def counts(cfg, train=True):
+            got = cs.expected_launches(cfg.n_layers, cfg.remat, train)
+            return (got["flash_fwd"], got["flash_bwd_dq"],
+                    got["flash_bwd_dkv"])
+
+        gpt = GPTConfig.gpt2_small()
+        assert counts(gpt) == (24, 12, 12)
+        assert counts(dataclasses.replace(gpt, remat=False)) == (12, 12, 12)
+        assert counts(LlamaConfig.tpu_bench()) == (16, 16, 16)  # remat off
+        assert counts(LlamaConfig()) == (12, 6, 6)               # remat on
+        assert counts(ViTConfig.vit_b16()) == (24, 12, 12)
+        assert counts(ViTConfig.vit_b16(), train=False) == (12, 0, 0)
+        assert counts(MoEConfig()) == (8, 4, 4)
+
+    @pytest.mark.parametrize("preset", ["tpu_bench", "tiny"])
+    def test_llama_param_count_matches_the_params(self, preset):
+        import jax
+
+        from ray_tpu.models import llama as jllama
+        from ray_tpu_torch.models import LlamaConfig
+
+        cfg = getattr(LlamaConfig, preset)()
+        shapes = jax.eval_shape(lambda: jllama.llama_init(
+            jax.random.PRNGKey(0), getattr(jllama.LlamaConfig, preset)()))
+        jax_count = sum(math.prod(x.shape) for x in jax.tree.leaves(shapes))
+        assert cs.llama_param_count(cfg) == jax_count
+        if preset == "tpu_bench":
+            # every param: embedding, untied head, 16 layers, norms
+            assert jax_count == 245_924_864
+
+    def test_vit_shape_is_vit_b16_attention(self):
+        from ray_tpu_torch.models import ViTConfig
+
+        cfg = ViTConfig.vit_b16()
+        assert cs.VIT_SHAPE == (64, cfg.n_heads, cfg.num_patches + 1,
+                                cfg.head_dim) == (64, 12, 197, 64)
+        # 197 f32 rows are 788 bytes: off the 16-byte grid that TMA needs
+        assert cs.VIT_SHAPE[2] * 4 % 16
+
+    def test_model_shapes_are_each_paths_attention(self):
+        from ray_tpu_torch.models import GPTConfig, LlamaConfig, MoEConfig
+
+        gpt, llama = GPTConfig.gpt2_small(), LlamaConfig.tpu_bench()
+        moe = MoEConfig()
+        assert cs.MOE_SHAPE == (8, moe.n_heads, moe.max_seq_len,
+                                moe.head_dim) == (8, 8, 1024, 64)
+        assert cs.LLAMA_SHAPE == (8, llama.n_heads, 2048, llama.head_dim)
+        assert cs.GPT2_SHAPE == (16, gpt.n_heads, 1024, gpt.head_dim)
+        # both compare phases hold and time the kernels at each of them;
+        # only ViT's attention is not causal
+        assert cs.MODEL_SHAPES == [
+            (cs.GPT2_SHAPE, True), (cs.LLAMA_SHAPE, True),
+            (cs.VIT_SHAPE, False), (cs.MOE_SHAPE, True)]
+
+    def test_record_routes_records_the_dispatch_and_restores(self):
+        import torch
+
+        from ray_tpu_torch.parallel import moe as pmoe
+
+        gen = torch.Generator().manual_seed(0)
+        x = torch.randn(32, 16, generator=gen)
+        gate = torch.randn(16, 4, generator=gen)
+        w1 = torch.randn(4, 16, 8, generator=gen)
+        w2 = torch.randn(4, 8, 16, generator=gen)
+        original, record = pmoe.top2_gating, []
+        assert cs.record_routes(record) is original
+        try:
+            # a small capacity, so that some routes are dropped
+            pmoe.moe_layer(x, gate, w1, w2, capacity_factor=0.5)
+        finally:
+            pmoe.top2_gating = original
+        dispatch, _, _ = original(x @ gate, max(1, int(0.5 * 32 * 2 / 4)))
+        assert len(record) == 1
+        assert torch.equal(record[0], dispatch.any(-1))
+        assert (record[0].sum(-1) < 2).any()

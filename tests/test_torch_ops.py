@@ -410,11 +410,17 @@ class TestIsolation:
             "import ray_tpu_torch.models.generate, ray_tpu_torch.llm\n"
             "import ray_tpu_torch.models.convert\n"
             "import ray_tpu_torch.models._training\n"
+            "import ray_tpu_torch.parallel, ray_tpu_torch.parallel.moe\n"
+            "import ray_tpu_torch.models.llama, ray_tpu_torch.models.vit\n"
+            "import ray_tpu_torch.models.moe, ray_tpu_torch.models.resnet\n"
             "print('\\n'.join(sys.modules))\n")
         out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                              capture_output=True, text=True, timeout=120,
                              check=True).stdout.split()
         assert "ray_tpu_torch.llm" in out
+        assert {"ray_tpu_torch.parallel.moe", "ray_tpu_torch.models.llama",
+                "ray_tpu_torch.models.vit", "ray_tpu_torch.models.moe",
+                "ray_tpu_torch.models.resnet"} <= set(out)
         assert [m for m in out if _forbidden(m)] == []
 
     def test_no_forbidden_import_in_source(self):
