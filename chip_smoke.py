@@ -42,7 +42,8 @@ phase:
                     [5462,12,197,64] forward), launched in two chunks:
                     the heads around each chunk boundary and at both
                     ends against the plain versions, the launches, and
-                    kernel, plain and SDPA times
+                    kernel, plain and SDPA times of K1, and of K2 and K3
+                    (against SDPA's backward) at [4097,16,64,64]
   6. slice          GPTInferenceStage (the batch serving path that runs
                     K1): 16 prompts bucketed to T=1024, 8 greedy steps,
                     K1's launches counted over exactly that run; its
@@ -56,50 +57,68 @@ phase:
                     ($TMPDIR/rtt_sessions/*, /dev/shm/rtt_<tag>_*) are gone
   9. serve_llm      build_llm_app(GPT-2 small) under the port's Serve,
                     single-stream and continuous batching, the replica
-                    drawing the seed-0 weights on the card: 8 requests
-                    through the deployment handle (to the continuous app
-                    all at once, so they share its decode batch) and one
-                    streamed, each equal to the in-process engine's text
-                    (of the same kind, given the requests as the app
-                    was); how far each stays from LLMEngine's; median
-                    latency and time to first chunk (and the engines'
-                    byte-vocab default config when GPT-2's answers are
-                    nearly empty)
+                    reserving the GPU (num_gpus=1: a worker without one
+                    sees no card) and drawing the seed-0 weights on it:
+                    8 requests through the deployment handle (to the
+                    continuous app all at once, so they share its decode
+                    batch) and one streamed, each equal to the
+                    in-process engine's text (of the same kind, given
+                    the requests as the app was); how far each stays
+                    from LLMEngine's; median latency and time to first
+                    chunk (and the engines' byte-vocab default config
+                    when GPT-2's answers are nearly empty)
  10. processor      the build_processor pipeline over a Dataset of the
                     slice's 16 prompts, the GPT stage (GPT-2 small, 8
-                    steps) in a Data pool actor on the card: tokens equal
-                    to the in-process stage's, 96 K1 (and no K2, K3)
-                    launches counted in the actor's process; rows/s and tokens/s against the
-                    in-process stage; build_processor at its defaults
+                    steps) in a Data pool actor that reserves the GPU:
+                    tokens equal to the in-process stage's, 96 K1 (and
+                    no K2, K3) launches counted in the actor's process;
+                    rows/s and tokens/s against the in-process stage;
+                    build_processor at its defaults
  11. train          make_train_step(GPTConfig.gpt2_small()) at B=16,
                     S=1024, bf16, remat on (the preset) and off: step ms,
                     tokens/s, MFU, peak memory, the losses, and K1, K2, K3
                     launches counted over exactly one step
- 12. train_vs_cpu   one step at GPT-2-small width and 2 layers, card vs
+ 12. train_dp       the same GPT-2-small step (remat on, seed-0 weights
+                    and batch) through the port's own Train:
+                    ray_tpu_torch.init(num_cpus=4) with the GPU count
+                    detected (equal to torch's), a task without a GPU
+                    that must see CUDA_VISIBLE_DEVICES="" and no card,
+                    then TorchTrainer(ScalingConfig(num_workers=1,
+                    use_gpu=True)): in its worker, pinned to GPU 0 on
+                    NCCL, one all-reduce of a CUDA tensor through
+                    init_collective_group(1, 0, "nccl"), then 5 steps of
+                    make_train_step(mesh=make_mesh(MeshConfig(dp=1)),
+                    rules=tp_rules()) with K1, K2, K3 launches of 120,
+                    60, 60 counted in that process; step ms, tokens/s,
+                    MFU, both processes' memory; its 5 losses against
+                    phase 11's first 5 steps, and its checkpoint loaded
+                    here against the digest of its params
+ 13. train_vs_cpu   one step at GPT-2-small width and 2 layers, card vs
                     CPU from the same weights: loss, every gradient, every
                     param after AdamW (f32 at T=128, bf16 at ragged T=100)
- 13. train_profile  torch.profiler over one train step: device ms by
+ 14. train_profile  torch.profiler over one train step: device ms by
                     group (K1, K2, K3 each a group) and the idle share
- 14. llama_train    make_llama_train_step(LlamaConfig.tpu_bench()) at B=8,
+ 15. llama_train    make_llama_train_step(LlamaConfig.tpu_bench()) at B=8,
                     S=2048, bf16, remat off (the preset): step ms,
                     tokens/s, MFU, peak memory, the losses, launches
- 15. llama_profile  torch.profiler over one llama step, as train_profile
- 16. llama_vs_cpu   one llama step at tpu_bench width (GQA 8:2, head_dim
+ 16. llama_profile  torch.profiler over one llama step, as train_profile
+ 17. llama_vs_cpu   one llama step at tpu_bench width (GQA 8:2, head_dim
                     128) and 2 layers, card vs CPU, as train_vs_cpu
- 17. vit            make_vit_train_step(ViTConfig.vit_b16()) at B=64 on
+ 18. vit            make_vit_train_step(ViTConfig.vit_b16()) at B=64 on
                     224x224x3 images (non-causal attention at S=197),
                     then make_classifier on 64 images: step ms, images/s,
                     the losses, launches per step and per call
- 18. moe_train      make_moe_train_step(MoEConfig()) at B=8, S=1024: step
+ 19. moe_train      make_moe_train_step(MoEConfig()) at B=8, S=1024: step
                     ms, tokens/s, the losses, launches; then one f32 step
                     at 2 layers, card vs CPU, with the share of tokens
                     routed to another pair of experts
- 19. resnet         make_predictor(ResNetConfig.resnet50()) on 64 images
+ 20. resnet         make_predictor(ResNetConfig.resnet50()) on 64 images
                     at 224: images/s; f32 logits of 4 images card vs CPU,
                     and the same with TF32 convolutions, which the band
                     must reject
- 20. kernels        one entry per kernel: launches on each main path
-                    (the processor's counted in its pool actor), error,
+ 21. kernels        one entry per kernel: launches on each main path
+                    (the processor's counted in its pool actor, the
+                    Train worker's in its process), error,
                     times and bound at the four model shapes and above
                     the head limit, and its design
 
@@ -902,7 +921,11 @@ def phase_heads_over_limit(peaks):
             row["delta_err"] = delta_err(sub(delta), sub(do), sub(o))
             finite = finite and all(bool(torch.isfinite(g).all())
                                     for g in (dq, dk, dv))
-            del do, dq, dk, dv, delta, refs
+            del dq, dk, dv, refs
+            torch.cuda.empty_cache()
+            row.update(time_bwd_over_limit(q, k, v, o, do, lse, delta,
+                                           causal, scale, peaks))
+            del do, delta
         row["launches"] = launches
         torch.cuda.empty_cache()
         row["ms"] = cuda_ms(lambda: _kernels.flash_fwd(q, k, v, causal,
@@ -930,6 +953,47 @@ def phase_heads_over_limit(peaks):
         del q, k, v
         torch.cuda.empty_cache()
     return rows
+
+
+def time_bwd_over_limit(q, k, v, o, do, lse, delta, causal: bool,
+                        scale: float, peaks) -> dict:
+    """K2 and K3 at a shape above the head limit, two chunked launches a
+    call: kernel ms (median of 5 after 1 warm-up), bound, the plain
+    versions' ms at the full shape (median of 3), and SDPA's backward (one
+    torch.autograd.grad for dq, dk and dv, never called by the port)."""
+    import torch
+    import torch.nn.functional as F
+
+    from ray_tpu_torch.ops import _kernels
+    from ray_tpu_torch.ops.attention import (flash_bwd_dkv_reference,
+                                             flash_bwd_dq_reference)
+
+    shape = tuple(q.shape)
+    out = {}
+    for key, products, kernel, plain in (
+            ("dq", 3, lambda: _kernels.flash_bwd_dq(q, k, v, o, do, lse,
+                                                    causal, scale),
+             lambda: flash_bwd_dq_reference(q, k, v, o, do, lse, causal,
+                                            scale)),
+            ("dkv", 4, lambda: _kernels.flash_bwd_dkv(q, k, v, do, lse,
+                                                      delta, causal, scale),
+             lambda: flash_bwd_dkv_reference(q, k, v, do, lse, delta,
+                                             causal, scale))):
+        bound_ms, bound_by = attention_bound(shape, 2, causal, peaks["bf16"],
+                                             peaks["bytes"], products, 6, 2)
+        out[key] = {"bound_ms": bound_ms, "bound_by": bound_by,
+                    "ms": cuda_ms(kernel, 1, 5)}
+        torch.cuda.empty_cache()
+        out[key]["plain_ms"] = cuda_ms(plain, 1, 3)
+        torch.cuda.empty_cache()
+    lib = [x.clone().requires_grad_() for x in (q, k, v)]
+    out_lib = F.scaled_dot_product_attention(*lib, is_causal=causal,
+                                             scale=scale)
+    out["bwd_library_ms"] = cuda_ms(lambda: torch.autograd.grad(
+        out_lib, lib, do, retain_graph=True), 1, 5)
+    del lib, out_lib
+    torch.cuda.empty_cache()
+    return out
 
 
 def copy_dirs(node) -> list:
@@ -1025,7 +1089,9 @@ def serve_app(cfg, continuous: bool, prompts, new_tokens: int):
 
     name = f"llm_{'cb' if continuous else 'single'}"
     t0 = time.perf_counter()
-    serve.run(build_llm_app(cfg=cfg, continuous_batching=continuous),
+    # The replica reserves the card: a worker without a GPU sees none.
+    serve.run(build_llm_app(cfg=cfg, continuous_batching=continuous,
+                            num_gpus=1),
               name=name, route_prefix=f"/{name}")
     handle = serve.get_deployment_handle("LLMServer", name)
     texts, walls = [], []
@@ -1207,7 +1273,7 @@ def phase_processor():
     stage_kwargs = {"config": cfg, "max_new_tokens": PROCESSOR_STEPS}
     processor = Processor([
         StageSpec(TokenizeStage, {"max_length": cfg.max_seq_len}),
-        StageSpec(counting_stage(), stage_kwargs),
+        StageSpec(counting_stage(), stage_kwargs, num_gpus=1),
         StageSpec(DetokenizeStage)], batch_size=16)
     ds = data.from_items([{"prompt": p} for p in prompts])
     t0 = time.perf_counter()
@@ -1388,6 +1454,233 @@ def phase_train(peaks):
         del state, batch
         torch.cuda.empty_cache()
     return results
+
+
+# The train_dp phase: phase_train's GPT-2-small step (remat on, B=16,
+# S=1024, seed-0 weights and batch) through the port's TorchTrainer, in a
+# worker pinned to the card, on a dp=1 mesh (NCCL at world size 1).
+TRAIN_DP_STEPS = 5
+# Its losses against the in-process make_train_step's first steps on the
+# same weights and batch, relative: the bf16 loss band of train_vs_cpu.
+# The worker's step adds the dp all-reduce (at world size 1 a copy
+# through f32, exact for bf16), and the embedding's backward sums its
+# rows with atomics, in another order in each run.
+TOL_TRAIN_DP_LOSS = 1e-2
+
+
+def state_digest(params) -> str:
+    """sha256 over every param's dtype, shape and bytes, in tree_leaves
+    order, from CPU copies: the same for a state on the card and for its
+    checkpoint loaded on the CPU."""
+    import hashlib
+
+    import torch
+
+    from ray_tpu_torch.models.convert import tree_leaves
+
+    digest = hashlib.sha256()
+    for p in tree_leaves(params):
+        t = p.detach().cpu().contiguous().reshape(-1)
+        digest.update(f"{t.dtype}{tuple(p.shape)}".encode())
+        digest.update(t.view(torch.uint8).numpy().tobytes())
+    return digest.hexdigest()
+
+
+def train_dp_loop(config):
+    """train_loop_per_worker of the train_dp phase, in each pinned worker:
+    one all-reduce of a CUDA tensor through the collective API on nccl
+    (rank r gives r + 1), then ``config["steps"]`` steps of
+    make_train_step(gpt2_small) on a dp mesh over the workers with
+    tp_rules, each on this rank's shard_batch of the global batch and
+    closed by fetching the loss, the kernels' launches counted in this
+    process over exactly those steps; rank 0 saves the state as a
+    checkpoint. Reports what the driver checks, each rank's own values
+    gathered in rank order."""
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import train
+    from ray_tpu_torch.models import GPTConfig, make_train_step, shard_batch
+    from ray_tpu_torch.models.convert import tree_leaves
+    from ray_tpu_torch.ops import _kernels
+    from ray_tpu_torch.parallel import MeshConfig, make_mesh, tp_rules
+    from ray_tpu_torch.util import collective as col
+
+    torch.backends.cuda.matmul.allow_tf32 = False  # as in the driver
+    ctx = train.get_context()
+    rank, world = ctx.world_rank, ctx.world_size
+    group = f"train_dp/{ctx.experiment_name}"
+    col.init_collective_group(world, rank, "nccl", group)
+    given = torch.full((4,), float(rank + 1), device="cuda")
+    reduced = col.allreduce(given, group)
+    collective = {"type": type(reduced).__name__,
+                  "device": str(reduced.device),
+                  "sum": float(reduced[0])}
+    col.destroy_collective_group(group)
+
+    cfg = GPTConfig.gpt2_small()
+    b, s = config["batch"], config["seq"]
+    mesh = make_mesh(MeshConfig(dp=world))
+    init_state, train_step = make_train_step(cfg, mesh=mesh,
+                                             rules=tp_rules())
+    state = init_state(torch.Generator(device="cuda").manual_seed(0))
+    n_params = sum(p.numel() for p in tree_leaves(state["params"]))
+    batch = shard_batch(token_batch(cfg.vocab_size, b, s), mesh)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = dict(_kernels.LAUNCHES)
+    losses, steps_s = [], []
+    for _ in range(config["steps"]):
+        t0 = time.perf_counter()
+        state, m = train_step(state, batch)
+        losses.append(float(m["loss"]))  # the fetch ends the step
+        steps_s.append(time.perf_counter() - t0)
+    launches = {n: _kernels.LAUNCHES[n] - before.get(n, 0)
+                for n in _kernels.LAUNCHES}
+    step = statistics.median(steps_s)
+    mine = {"pid": os.getpid(),
+            "cuda_visible_devices": os.environ.get("CUDA_VISIBLE_DEVICES"),
+            "gpu_ids": rt.get_gpu_ids(),
+            "device_count": torch.cuda.device_count(),
+            "launches": launches, "collective_allreduce": collective,
+            "max_memory_allocated_gb":
+                torch.cuda.max_memory_allocated() / 1e9,
+            "digest": state_digest(state["params"])}
+    ranks = [None] * world
+    dist.all_gather_object(ranks, mine)
+    metrics = {
+        "backend": dist.get_backend(), "world": dist.get_world_size(),
+        "mesh": dict(zip(mesh.mesh_dim_names, mesh.mesh.shape)),
+        "ranks": ranks, "params": n_params, "losses": losses,
+        "step_ms_runs": [t * 1e3 for t in steps_s],
+        "step_ms_median": step * 1e3, "tokens_per_s": b * s / step,
+        "mfu": 6 * n_params * b * s / step / (config["peak_bf16"] * world)}
+    checkpoint = None
+    if rank == 0:
+        path = tempfile.mkdtemp(prefix="final_", dir=os.path.join(
+            ctx.storage_path, "checkpoints"))
+        t0 = time.perf_counter()
+        checkpoint = train.Checkpoint.from_state(state, path)
+        metrics["checkpoint_save_s"] = time.perf_counter() - t0
+    train.report(metrics, checkpoint=checkpoint)
+
+
+def train_dp_checks(m: dict, reference, driver_pid: int, steps: int
+                    ) -> dict:
+    """A train_dp report (one entry a rank in ``m["ranks"]``) against what
+    the phase requires: each rank pinned to a GPU of its own, which it
+    sees as its only card; NCCL over all ranks; the collective's CUDA
+    all-reduce of r + 1 summed over the ranks; in every rank, the
+    launches of ``steps`` steps with remat, in processes other than the
+    driver's; equal params on every rank after the steps; losses within
+    the band of ``reference`` (the in-process steps). Returns each check
+    by name, and the loss errors."""
+    expected = {n: k * steps for n, k in expected_launches(12, True).items()}
+    ranks, world = m["ranks"], m["world"]
+    ours, theirs = m["losses"], list(reference)[:steps]
+    errs = [abs(a - b) / abs(b) for a, b in zip(ours, theirs)]
+    ids = [r["gpu_ids"] for r in ranks]
+    return {
+        "expected_launches": expected,
+        "loss_rel_errs": errs,
+        "bit_identical": ours == theirs,
+        "checks": {
+            "pinned": len(ranks) == world
+            and sorted(ids) == [[i] for i in range(world)]
+            and all(r["cuda_visible_devices"] == str(r["gpu_ids"][0])
+                    and r["device_count"] == 1 for r in ranks),
+            "nccl": m["backend"] == "nccl",
+            "collective": all(r["collective_allreduce"] == {
+                "type": "Tensor", "device": "cuda:0",
+                "sum": world * (world + 1) / 2} for r in ranks),
+            "launches": all(r["launches"] == expected for r in ranks),
+            "other_process": len({r["pid"] for r in ranks}) == world
+            and driver_pid not in {r["pid"] for r in ranks},
+            "ranks_agree": len({r["digest"] for r in ranks}) == 1,
+            "losses_finite": len(ours) == steps
+            and all(math.isfinite(x) for x in ours),
+            "losses_in_band": len(errs) == steps
+            and max(errs) <= TOL_TRAIN_DP_LOSS}}
+
+
+def phase_train_dp(peaks, reference_losses):
+    """The GPT-2-small step through the port's own Train: a cluster with
+    its GPU count detected (it must equal torch's), a task without a GPU
+    that must see no card, then TorchTrainer with one worker that
+    reserves the GPU (use_gpu=True) and runs train_dp_loop. Its losses
+    are held against phase_train's in-process steps, and its checkpoint,
+    loaded here with Checkpoint.to_state, against the digest of its
+    params. The driver's and the worker's memory are reported."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    import ray_tpu_torch as rt
+    from ray_tpu_torch.train import RunConfig, ScalingConfig, TorchTrainer
+
+    torch.cuda.empty_cache()
+    driver_memory = {"allocated_gb": torch.cuda.memory_allocated() / 1e9,
+                     "reserved_gb": torch.cuda.memory_reserved() / 1e9}
+    storage = tempfile.mkdtemp(prefix="rtt_train_dp_")
+    rt.init(num_cpus=4)
+    node = current_node()
+    try:
+        resources = rt.cluster_resources()
+
+        @rt.remote
+        def without_gpu():
+            import torch
+            return (os.environ.get("CUDA_VISIBLE_DEVICES"),
+                    torch.cuda.is_available(), rt.get_gpu_ids())
+
+        zero_gpu = rt.get(without_gpu.remote(), timeout=120)
+        t0 = time.perf_counter()
+        result = TorchTrainer(
+            train_dp_loop,
+            train_loop_config={"steps": TRAIN_DP_STEPS, "batch": 16,
+                               "seq": 1024, "peak_bf16": peaks["bf16"]},
+            scaling_config=ScalingConfig(num_workers=1, use_gpu=True),
+            run_config=RunConfig(name="train_dp", storage_path=storage),
+        ).fit()
+        fit_s = time.perf_counter() - t0
+        check(result.error is None, f"train_dp failed: {result.error!r}")
+        m = result.metrics
+        t0 = time.perf_counter()
+        state = result.checkpoint.to_state()
+        load_s = time.perf_counter() - t0
+        loaded_digest = state_digest(state["params"])
+        loaded = {"keys": sorted(state), "step": state["step"]}
+        del state
+    finally:
+        rt.shutdown()
+        shutil.rmtree(storage, ignore_errors=True)
+    got = train_dp_checks(m, reference_losses, os.getpid(), TRAIN_DP_STEPS)
+    got["checks"]["detected_gpus"] = \
+        resources.get("GPU") == float(torch.cuda.device_count())
+    got["checks"]["zero_gpu_task"] = zero_gpu == ("", False, [])
+    got["checks"]["checkpoint"] = (
+        loaded_digest == m["ranks"][0]["digest"]
+        and loaded["step"] == TRAIN_DP_STEPS)
+    got["checks"]["no_dirs_left"] = copy_dirs(node) == []
+    ranks = [{k: v for k, v in r.items() if k != "digest"}
+             for r in m["ranks"]]
+    emit("train_dp", config="gpt2_small", remat=True, batch=16, seq=1024,
+         dtype="bfloat16", steps=TRAIN_DP_STEPS, workers=1,
+         driver_pid=os.getpid(), detected_gpus=resources.get("GPU"),
+         zero_gpu_task=list(zero_gpu), fit_s=fit_s,
+         checkpoint=dict(loaded, load_s=load_s, digest_equal=loaded_digest
+                         == m["ranks"][0]["digest"]),
+         reference_losses=list(reference_losses)[:TRAIN_DP_STEPS],
+         loss_tol=TOL_TRAIN_DP_LOSS, driver_memory=driver_memory,
+         mfu_peak=f"bf16 {peaks['bf16']:.4g} FLOP/s ({peaks['matched']})",
+         **got, **dict(m, ranks=ranks))
+    failed = [name for name, ok in got["checks"].items() if not ok]
+    check(not failed, f"train_dp checks failed: {failed}")
+    return ranks[0]
 
 
 # (dtype, T, tolerances) of one train step card vs CPU, normalized by each
@@ -1813,6 +2106,7 @@ def main() -> int:
     phase_runtime()
     pool_actor = phase_control_plane()
     trained = phase_train(peaks)
+    train_dp = phase_train_dp(peaks, trained[True]["losses"])
     phase_train_vs_cpu()
     phase_train_profile()
     llama = phase_llama_train(peaks)
@@ -1824,12 +2118,14 @@ def main() -> int:
     # Launches on each main path, each counted over exactly its run:
     # the batch serving slice, the same stage's call inside a Data pool
     # actor (counted in that process), one GPT-2-small train step with
-    # remat (the preset) and one without, one llama, ViT and MoE train
-    # step each, and one ViT classifier call.
+    # remat (the preset) and one without, the 5 steps of the Train
+    # worker (counted in its process), one llama, ViT and MoE train step
+    # each, and one ViT classifier call.
     pool = {name: pool_actor[name] for name in serving}
     paths = {"serving": serving, "processor_pool_actor": pool,
              "train": trained[True]["launches"],
              "train_no_remat": trained[False]["launches"],
+             "train_dp_worker": train_dp["launches"],
              "llama_train": llama["launches"], **vit, "moe_train": moe}
     by_path = {name: {path: launches[name]
                       for path, launches in paths.items()}
@@ -1879,7 +2175,8 @@ def main() -> int:
         extra["over_limit"] = [
             {"shape": row["shape"], "bh": row["bh"],
              "chunks": row["chunks"], "launches": row["launches"][name],
-             "max_norm_err": {g: row["bwd_max_norm_err"][g] for g in grads}}
+             "max_norm_err": {g: row["bwd_max_norm_err"][g] for g in grads},
+             **row[key], "library_ms": row["bwd_library_ms"]}
             for row in over_limit if "bwd_max_norm_err" in row]
         kernels.append({
             "name": name, "route": "cuda",

@@ -1,8 +1,9 @@
 """ray_tpu_torch: the PyTorch/CUDA port of ray_tpu, for NVIDIA Hopper.
 
 A package beside ``ray_tpu`` that mirrors its layout (``ops``, ``models``,
-``llm``, ``parallel``, and the control plane: ``api``, ``_private``,
-``serve``, ``data``, ``dag``, ``util``). It imports torch and numpy, never
+``llm``, ``parallel``, ``train``, and the control plane: ``api``,
+``_private``, ``serve``, ``data``, ``dag``, ``util`` with
+``util.collective``). It imports torch and numpy, never
 JAX and nothing of ``ray_tpu``. Each Pallas kernel of the JAX package
 becomes a kernel written by hand for Hopper (``ops/csrc``), built at first
 use; the rest is plain PyTorch.
@@ -16,7 +17,7 @@ package loads no torch: torch loads where a stage or an engine needs it.
 
     import ray_tpu_torch
 
-    ray_tpu_torch.init(num_cpus=4, num_gpus=1)
+    ray_tpu_torch.init(num_cpus=4)   # GPUs detected; num_gpus= overrides
 
     @ray_tpu_torch.remote
     def f(x): return x * 2
@@ -37,7 +38,7 @@ from .api import (
     get,
     get_actor,
     get_runtime_context,
-    get_tpu_ids,
+    get_gpu_ids,
     init,
     is_initialized,
     kill,
@@ -56,6 +57,6 @@ __version__ = "0.1.0"
 __all__ = [
     "ActorHandle", "ObjectRef", "ObjectRefGenerator", "available_resources", "cancel",
     "cluster_resources", "exceptions", "get", "get_actor",
-    "get_runtime_context", "get_tpu_ids", "init", "is_initialized", "kill", "method", "nodes", "timeline",
+    "get_runtime_context", "get_gpu_ids", "init", "is_initialized", "kill", "method", "nodes", "timeline",
     "put", "remote", "shutdown", "wait", "__version__",
 ]

@@ -221,7 +221,7 @@ class RayConfig:
         # max_tasks_in_flight_per_worker=10, direct task transport
         # pipelining). The worker executes them strictly in order, so
         # the resource contract holds; the grant releases when the
-        # pipeline drains. TPU tasks never pipeline (chip exclusivity).
+        # pipeline drains. GPU tasks never pipeline (device exclusivity).
         "max_tasks_in_flight_per_worker": 16,
         # -- serve data plane on the direct call plane (reference: the
         # proxy's replica scheduler submitting via the direct actor

@@ -59,7 +59,7 @@ class RemoteWorkerProxy:
         self.inflight = 0
         self.blocked = 0
         self.lease_released = False
-        self.chip_ids: List[int] = []
+        self.gpu_ids: List[int] = []
         self.alive = True
         self.last_dispatch_ts = 0.0
         self.death_handled = False
@@ -222,10 +222,10 @@ class DaemonHandle:
                      dedicated: bool = False) -> RemoteWorkerProxy:
         """Synchronous remote worker start (the lease-grant round trip,
         node_manager.cc:1868)."""
-        from .placement import tpu_chips_in_demand
-        nchips = 0
-        if env_key.startswith("tpu:"):
-            nchips = tpu_chips_in_demand(spec.resources) or 1
+        from .placement import gpus_in_demand
+        nchips = 0  # GPUs to pin (the wire field keeps its name)
+        if env_key.startswith("gpu:"):
+            nchips = gpus_in_demand(spec.resources) or 1
         reply = self.request(P.START_WORKER, {
             "env_key": env_key, "dedicated": dedicated, "nchips": nchips,
             "runtime_env": getattr(spec, "runtime_env", None)})

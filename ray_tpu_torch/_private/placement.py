@@ -15,15 +15,14 @@ two-phase commit (PREPARE/COMMIT across raylets,
 gcs_placement_group_scheduler.cc) into one atomic reservation against the
 node's ResourceManager, which is sound on a single resource view.
 
-For TPU gang scheduling, a bundle demanding ``TPU`` chips reserves real
-chips; the scheduler's chip allocator hands specific chip ids to workers
-only when a task in the group actually starts, so reservation never
-strands chips (reference: tpu.py pod-slice head resource gang pattern,
-python/ray/_private/accelerators/tpu.py:330-377).
+A bundle demanding ``GPU`` reserves a count; the scheduler's GPU
+allocator hands specific device ids to workers only when a task in the
+group actually starts, so reservation never strands a device.
 """
 
 from __future__ import annotations
 
+import math
 import threading
 import time
 from dataclasses import dataclass, field
@@ -83,19 +82,20 @@ def rewrite_demand_for_pg(resources: Dict[str, float], pg_id_hex: str,
     return out
 
 
-def tpu_chips_in_demand(resources: Dict[str, float]) -> int:
-    """Physical TPU chips a demand implies — whether direct (``TPU``) or
-    through a placement-group wildcard resource (``TPU_group_{pgid}``).
-    Indexed duplicates are ignored so chips are not double-counted."""
+def gpus_in_demand(resources: Dict[str, float]) -> int:
+    """GPUs a demand pins, whether direct (``GPU``) or through a
+    placement-group wildcard resource (``GPU_group_{pgid}``). Indexed
+    duplicates are ignored so GPUs are not double-counted; a fraction
+    rounds up, so a worker that asks for part of a GPU still sees one."""
     n = 0.0
     for k, v in resources.items():
-        if k == "TPU":
+        if k == "GPU":
             n += v
         else:
             parsed = parse_group_resource(k)
-            if parsed and parsed[0] == "TPU" and parsed[1] is None:
+            if parsed and parsed[0] == "GPU" and parsed[1] is None:
                 n += v
-    return int(n)
+    return int(math.ceil(n - 1e-9))
 
 
 @dataclass

@@ -169,7 +169,7 @@ class _ActorState:
 class Node:
     """The driver-side runtime (head node)."""
 
-    def __init__(self, num_cpus=None, num_tpus=None, resources=None,
+    def __init__(self, num_cpus=None, num_gpus=None, resources=None,
                  namespace: str = "default", session_dir: Optional[str] = None,
                  object_store_memory: Optional[int] = None):
         self.namespace = namespace
@@ -199,7 +199,7 @@ class Node:
                 pass
         self.gcs = gcs_mod.Gcs()
         self.gcs.node_id_hex = self.node_id.hex()
-        totals = detect_node_resources(num_cpus, num_tpus, resources)
+        totals = detect_node_resources(num_cpus, num_gpus, resources)
         self.resources_mgr = ResourceManager(totals)
         from .placement import PlacementGroupManager
         self.pg_manager = PlacementGroupManager(self.resources_mgr)

@@ -10,11 +10,12 @@ pool, so "request lease → grant → push task" becomes "acquire resources →
 pop worker → send EXEC_TASK".
 
 Resources are float vectors like the reference's (fixed-point there,
-src/ray/common/scheduling/fixed_point.h; python floats suffice here). TPU
-chips are first-class resources; a worker scheduled onto chips gets
-``TPU_VISIBLE_CHIPS`` pinned in its environment before it can import jax,
-mirroring the reference's accelerator isolation
-(python/ray/_private/accelerators/tpu.py:170-193).
+src/ray/common/scheduling/fixed_point.h; python floats suffice here).
+GPUs are first-class resources; a worker scheduled onto GPUs gets
+``CUDA_VISIBLE_DEVICES`` pinned to specific ids in its environment before
+it can import torch, and a worker with none gets it empty, mirroring the
+reference's accelerator isolation
+(python/ray/_private/accelerators/nvidia_gpu.py).
 """
 
 from __future__ import annotations
@@ -554,7 +555,7 @@ class WorkerHandle:
         # direct_task_transport). The worker executes its queue
         # strictly in order under ONE resource grant, so admission
         # semantics hold; workers blocked in get/wait are excluded as
-        # pipeline targets, and TPU tasks never pipeline (chip
+        # pipeline targets, and GPU tasks never pipeline (device
         # exclusivity). lease = (node_id_hex, demand) while held.
         self.lease: Optional[Tuple[str, Dict[str, float]]] = None
         self.inflight = 0  # dispatched-not-finished count (sched._lock)
@@ -566,7 +567,7 @@ class WorkerHandle:
         # task indefinitely (worker execution is sequential).
         self.blocked = 0
         self.fn_cache: Set[str] = set()
-        self.chip_ids: List[int] = []  # TPU chips pinned to this worker
+        self.gpu_ids: List[int] = []  # GPUs pinned to this worker
         self.alive = True
         self.last_dispatch_ts = 0.0  # OOM-killer victim ordering
         # Set once the death callback has run (or been suppressed during
@@ -1060,10 +1061,10 @@ class WorkerPool:
             str(int(_rc.shuffle_link_inflight))
         env["RTT_SHUFFLE_MERGE_BUDGET"] = \
             str(int(_rc.shuffle_merge_budget))
-        # Never inherit the DRIVER's chip visibility: a cpu-pool worker
-        # with no chips assigned must not report the driver's
-        # TPU_VISIBLE_CHIPS through get_tpu_ids().
-        env.setdefault("TPU_VISIBLE_CHIPS", "")
+        # Never inherit the DRIVER's device visibility: a worker with no
+        # GPU assigned sees no card (torch.cuda.is_available() is False
+        # there) and reports no id through get_gpu_ids().
+        env.setdefault("CUDA_VISIBLE_DEVICES", "")
         if extra_env:
             env.update(extra_env)
         address = os.path.join(self._session_dir,
@@ -1096,7 +1097,6 @@ class WorkerPool:
         if (bool(ray_config.worker_lean_boot)
                 and self._lean_boot_safe()
                 and not env.get("CUDA_VISIBLE_DEVICES")
-                and not env.get("TPU_VISIBLE_CHIPS")
                 and not env.get("RTT_PYTHON")):
             # (pip-env workers skip -S: the venv's site-packages IS the
             # point of the environment.)
@@ -1105,8 +1105,7 @@ class WorkerPool:
             # time and a worker without a device never needs them.
             # PYTHONPATH below already carries site-packages via the
             # driver's sys.path, so imports resolve identically. Workers
-            # pinned to a device (CUDA_VISIBLE_DEVICES, or chips from the
-            # copied chip pinning) keep the full site.
+            # pinned to a GPU (CUDA_VISIBLE_DEVICES) keep the full site.
             argv.insert(1, "-S")
         # Worker stdout/stderr go to per-worker session log files
         # (reference: session_latest/logs/worker-*.out|err); the driver's
@@ -1304,10 +1303,11 @@ class Scheduler:
         self._leased: Set[bytes] = set()
         self._max_inflight = max(
             1, int(ray_config.max_tasks_in_flight_per_worker))
-        # TPU chip allocator: specific chip ids handed to workers so two
-        # workers never share a chip (reference: tpu.py visible-chips
-        # isolation; the resource COUNT alone can't prevent collisions).
-        self._free_chips = list(range(int(resources.totals.get("TPU", 0))))  # lint: guarded-by-ok startup read: the manager is not shared until the dispatch loop starts below
+        # GPU allocator: specific device ids handed to workers so two
+        # workers never share a GPU (reference: nvidia_gpu.py visible-
+        # devices isolation; the resource COUNT alone can't prevent
+        # collisions).
+        self._free_gpus = list(range(int(resources.totals.get("GPU", 0))))  # lint: guarded-by-ok startup read: the manager is not shared until the dispatch loop starts below
         self._lock = lockdep.lock("scheduler.queue")
         self._cond = threading.Condition(self._lock)
         self._ready: Deque[P.TaskSpec] = collections.deque()
@@ -1488,9 +1488,9 @@ class Scheduler:
             # no-pipeline path.
             return False
         env_key = self._env_key_for(spec)
-        if env_key.startswith("tpu:"):
-            # Never pipeline chip tasks: two JAX computations sharing
-            # one pinned chip means HBM OOM / contended execution.
+        if env_key.startswith("gpu:"):
+            # Never pipeline GPU tasks: two computations sharing one
+            # pinned GPU means device OOM / contended execution.
             return False
         worker = self.pool.pipeline_candidate(
             env_key, demand, self._max_inflight,
@@ -1578,9 +1578,9 @@ class Scheduler:
     # -- dispatch loop -----------------------------------------------------
     def _env_key_for(self, spec) -> str:
         from . import runtime_env as re_mod
-        from .placement import tpu_chips_in_demand
-        n = tpu_chips_in_demand(spec.resources)
-        key = f"tpu:{n}" if n > 0 else ""
+        from .placement import gpus_in_demand
+        n = gpus_in_demand(spec.resources)
+        key = f"gpu:{n}" if n > 0 else ""
         re_hash = re_mod.env_hash(getattr(spec, "runtime_env", None))
         if re_hash:
             # Segregate the worker pool per runtime env (reference: env
@@ -1810,7 +1810,7 @@ class Scheduler:
         worker = self.pool.pop_idle(env_key)
         if worker is not None and is_actor_creation and env_key == "":
             # An idle pooled worker becomes a dedicated actor process; it no
-            # longer counts against the task-pool cap. (TPU workers are
+            # longer counts against the task-pool cap. (GPU workers are
             # never counted, so only the generic pool decrements.)
             with self._lock:
                 self._started_workers -= 1
@@ -1842,7 +1842,7 @@ class Scheduler:
         return True
 
     def on_worker_removed(self, handle: WorkerHandle):
-        """A worker died; open a cap slot / return its chips, and
+        """A worker died; open a cap slot / return its GPUs, and
         release its lease grant ONCE (the per-spec failure path then
         skips leased specs)."""
         lease = None
@@ -1850,9 +1850,9 @@ class Scheduler:
             with self._lock:
                 if handle.dedicated_actor is None and handle.env_key == "":
                     self._started_workers -= 1
-                if handle.chip_ids:
-                    self._free_chips.extend(handle.chip_ids)
-                    handle.chip_ids = []
+                if handle.gpu_ids:
+                    self._free_gpus.extend(handle.gpu_ids)
+                    handle.gpu_ids = []
                 lease, handle.lease = handle.lease, None
                 handle.inflight = 0
                 if getattr(handle, "lease_released", False):
@@ -1882,31 +1882,31 @@ class Scheduler:
                 self._started_workers += 1
                 counted = True
         extra_env = {}
-        chip_ids: List[int] = []
+        gpu_ids: List[int] = []
         try:
-            if env_key.startswith("tpu:"):
-                # Pin specific chips before the worker can import jax
-                # (reference: tpu.py
+            if env_key.startswith("gpu:"):
+                # Pin specific GPUs before the worker can import torch
+                # (reference: nvidia_gpu.py
                 # set_current_process_visible_accelerator_ids); specific
-                # ids (not just counts) so concurrent TPU workers never
-                # collide on a chip.
-                from .placement import tpu_chips_in_demand
-                nchips = tpu_chips_in_demand(spec.resources) or 1
+                # ids (not just counts) so concurrent GPU workers never
+                # collide on a device.
+                from .placement import gpus_in_demand
+                ngpus = gpus_in_demand(spec.resources) or 1
                 with self._lock:
-                    if len(self._free_chips) < nchips:
+                    if len(self._free_gpus) < ngpus:
                         reclaim = True
                     else:
-                        chip_ids = [self._free_chips.pop()
-                                    for _ in range(nchips)]
+                        gpu_ids = sorted(self._free_gpus.pop(0)
+                                         for _ in range(ngpus))
                         reclaim = False
                 if reclaim:
-                    # Idle TPU workers hold chips; reclaim by retiring
+                    # Idle GPU workers hold devices; reclaim by retiring
                     # them and retrying once their death returns the
-                    # chips.
-                    self._reclaim_idle_tpu_workers()
+                    # ids.
+                    self._reclaim_idle_gpu_workers()
                     return None
-                from .resources import tpu_worker_extra_env
-                extra_env = tpu_worker_extra_env(chip_ids)
+                from .resources import gpu_worker_extra_env
+                extra_env = gpu_worker_extra_env(gpu_ids)
             spec_re = getattr(spec, "runtime_env", None)
             if spec_re:
                 from . import runtime_env as re_mod
@@ -1915,20 +1915,20 @@ class Scheduler:
         except BaseException:
             # ANY start failure (env materialization, subprocess spawn,
             # an injected worker.start fault) must hand back what was
-            # reserved: the cap slot and the pinned chips — or the
-            # phantom count/missing chips starve every later start.
+            # reserved: the cap slot and the pinned GPUs — or the
+            # phantom count/missing GPUs starve every later start.
             with self._lock:
                 if counted:
                     self._started_workers -= 1
-                if chip_ids:
-                    self._free_chips.extend(chip_ids)
+                if gpu_ids:
+                    self._free_gpus.extend(gpu_ids)
             raise
-        handle.chip_ids = chip_ids
+        handle.gpu_ids = gpu_ids
         return handle
 
-    def _reclaim_idle_tpu_workers(self):
+    def _reclaim_idle_gpu_workers(self):
         for key in list(self.pool._idle.keys()):
-            if not key.startswith("tpu:"):
+            if not key.startswith("gpu:"):
                 continue
             while True:
                 h = self.pool.pop_idle(key)

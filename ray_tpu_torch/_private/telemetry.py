@@ -242,7 +242,7 @@ def record_heartbeat_rtt(dt: float) -> None:
 
 
 def record_node_stats(store_used: int, num_workers: int,
-                      free_chips: int) -> None:
+                      free_gpus: int) -> None:
     """Per-node gauges refreshed on each daemon heartbeat tick."""
     global _ops
     _ops += 1
@@ -250,8 +250,8 @@ def record_node_stats(store_used: int, num_workers: int,
             "Bytes resident in this node's object store").set(store_used)
     _metric("node_num_workers", "gauge",
             "Worker processes alive on this node").set(num_workers)
-    _metric("node_free_tpu_chips", "gauge",
-            "Unassigned TPU chips on this node").set(free_chips)
+    _metric("node_free_gpus", "gauge",
+            "Unassigned GPUs on this node").set(free_gpus)
 
 
 def record_drain_progress(node_id_hex: str, objects_remaining: int,
@@ -795,7 +795,7 @@ def _refresh_head_gauges(node) -> None:
         record_node_stats(
             int(getattr(node.store, "used_bytes", 0) or 0),
             len(node.pool.workers),
-            len(getattr(node.scheduler, "_free_chips", ())))
+            len(getattr(node.scheduler, "_free_gpus", ())))
         record_pool_reclaimed(
             node.node_id.hex(),
             int(getattr(node.store, "pool_reclaimed_bytes", 0)))

@@ -39,7 +39,7 @@ __all__ = [
     "init", "shutdown", "is_initialized", "remote", "method", "get", "put",
     "wait", "kill", "cancel", "get_actor", "ObjectRef", "ActorHandle",
     "cluster_resources", "available_resources", "get_runtime_context",
-    "get_tpu_ids", "nodes", "timeline",
+    "get_gpu_ids", "nodes", "timeline",
 ]
 
 
@@ -195,7 +195,6 @@ class ObjectRef:
 # init / shutdown
 # ---------------------------------------------------------------------------
 def init(address: Optional[str] = None, *, num_cpus: Optional[int] = None,
-         num_tpus: Optional[int] = None,
          num_gpus: Optional[int] = None,
          resources: Optional[Dict[str, float]] = None,
          namespace: str = "default", object_store_memory: Optional[int] = None,
@@ -210,14 +209,12 @@ def init(address: Optional[str] = None, *, num_cpus: Optional[int] = None,
     (_private/fault.py; docs/FAULT_INJECTION.md) for this process AND —
     via the environment — every daemon/worker process spawned under it.
 
-    ``num_gpus`` declares the node's ``GPU`` resource, which
-    ``@remote(num_gpus=...)`` requests. It is a count only: workers are
-    not yet pinned to a device (``CUDA_VISIBLE_DEVICES`` is ROADMAP.md
-    Queue 1 item 2).
+    The node's ``GPU`` resource is the count of NVIDIA GPUs detected
+    (``_private/resources.py``; ``RTT_NUM_GPUS`` overrides it), or
+    ``num_gpus`` when given. ``@remote(num_gpus=...)`` reserves that many
+    and pins the worker to specific ids through ``CUDA_VISIBLE_DEVICES``;
+    a worker that asks for none sees no card.
     """
-    if num_gpus is not None:
-        resources = dict(resources or {})
-        resources["GPU"] = float(num_gpus)
     with _init_lock:
         if state.is_initialized():
             if ignore_reinit_error:
@@ -238,7 +235,7 @@ def init(address: Optional[str] = None, *, num_cpus: Optional[int] = None,
             return get_runtime_context()
         from ._private.runtime import Node
         try:
-            node = Node(num_cpus=num_cpus, num_tpus=num_tpus,
+            node = Node(num_cpus=num_cpus, num_gpus=num_gpus,
                         resources=resources, namespace=namespace,
                         object_store_memory=object_store_memory)
         except BaseException:
@@ -1022,12 +1019,13 @@ class RuntimeContext:
         return dict(spec.resources)
 
     def get_accelerator_ids(self) -> Dict[str, List[str]]:
-        """Visible accelerator chip ids (reference:
-        runtime_context.get_accelerator_ids; ray.get_gpu_ids analogue —
-        here the TPU chips pinned via TPU_VISIBLE_CHIPS)."""
+        """Visible accelerator ids (reference:
+        runtime_context.get_accelerator_ids): the GPUs the scheduler
+        pinned to this worker through CUDA_VISIBLE_DEVICES."""
         import os
-        chips = os.environ.get("TPU_VISIBLE_CHIPS", "")
-        return {"TPU": [c for c in chips.split(",") if c != ""]}
+        ids = os.environ.get("CUDA_VISIBLE_DEVICES", "")
+        return {"GPU": [c.strip() for c in ids.split(",")
+                        if c.strip() != ""]}
 
 
 def get_runtime_context() -> RuntimeContext:
@@ -1046,9 +1044,9 @@ def timeline(filename: Optional[str] = None):
     return state_api.timeline(filename=filename)
 
 
-def get_tpu_ids() -> List[int]:
-    """Chip ids assigned to this worker (reference: ray.get_gpu_ids —
-    the TPU equivalent reads the isolation env the scheduler set,
-    resources.py get_visible_chips_env)."""
-    return [int(c) for c in
-            get_runtime_context().get_accelerator_ids()["TPU"]]
+def get_gpu_ids() -> List[Union[int, str]]:
+    """GPU ids assigned to this worker (reference: ray.get_gpu_ids): the
+    entries of the CUDA_VISIBLE_DEVICES the scheduler set, as ints (a
+    UUID entry stays a string). Empty in a worker with no GPU."""
+    return [int(c) if c.isdigit() else c for c in
+            get_runtime_context().get_accelerator_ids()["GPU"]]

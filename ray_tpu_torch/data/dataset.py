@@ -616,8 +616,9 @@ class Dataset:
                     max_concurrency: Optional[int] = None,
                     **_ignored) -> "Dataset":
         """(reference: dataset.py:407 map_batches) — fn may be a function
-        (task pool) or a callable class (actor pool; `num_tpus=1` gives
-        each actor a pinned TPU chip for jit inference).
+        (task pool) or a callable class (actor pool; `num_gpus=1` gives
+        each actor a GPU of its own, pinned through CUDA_VISIBLE_DEVICES;
+        without it the actor sees no card).
 
         `max_concurrency` (actor classes only) lets N applies interleave
         on one actor: with jax's async dispatch, batch N+1's host->device
@@ -633,8 +634,8 @@ class Dataset:
             opts["num_cpus"] = num_cpus
         if num_tpus is not None:
             opts["num_tpus"] = num_tpus
-        if num_gpus is not None and num_gpus > 0 and num_tpus is None:
-            opts["num_tpus"] = num_gpus  # gpu-arg compat: treat as chips
+        if num_gpus is not None and num_gpus > 0:
+            opts["num_gpus"] = num_gpus
         if max_concurrency is not None and is_class:
             opts["max_concurrency"] = int(max_concurrency)
 

@@ -216,11 +216,14 @@ class StageSpec:
     """A stateful stage to be constructed inside pool actors: the class
     plus ctor kwargs ship to each actor, so heavy state (tokenizer,
     model params on the device) is built once per actor instead of being
-    re-pickled per block."""
+    re-pickled per block. ``num_gpus`` is what each actor reserves: a
+    stage that runs on the card needs 1, since an actor without a GPU
+    sees none."""
 
     cls: type
     kwargs: Dict[str, Any] = field(default_factory=dict)
     concurrency: int = 1
+    num_gpus: float = 0
 
 
 class Processor:
@@ -236,7 +239,8 @@ class Processor:
                 dataset = dataset.map_batches(
                     stage.cls, batch_size=self.batch_size,
                     fn_constructor_kwargs=dict(stage.kwargs),
-                    concurrency=stage.concurrency)
+                    concurrency=stage.concurrency,
+                    num_gpus=stage.num_gpus)
             else:
                 dataset = dataset.map_batches(
                     stage, batch_size=self.batch_size)
@@ -246,7 +250,9 @@ class Processor:
 def build_processor(config: ProcessorConfig) -> Processor:
     """Standard pipeline: [chat template] -> tokenize -> generate ->
     detokenize. Stateful stages are StageSpecs, constructed per pool
-    actor, not on the driver."""
+    actor, not on the driver; the GPT stage's actors each reserve a GPU
+    unless ``config.device`` is the CPU."""
+    on_cpu = str(config.device).split(":")[0] == "cpu"
     stages: List[Any] = []
     if config.use_chat_template:
         stages.append(StageSpec(ChatTemplateStage,
@@ -255,6 +261,6 @@ def build_processor(config: ProcessorConfig) -> Processor:
     stages.append(StageSpec(
         GPTInferenceStage, {"max_new_tokens": config.max_new_tokens,
                             "device": config.device},
-        concurrency=config.concurrency))
+        concurrency=config.concurrency, num_gpus=0 if on_cpu else 1))
     stages.append(StageSpec(DetokenizeStage, {"model": config.model}))
     return Processor(stages, batch_size=config.batch_size)

@@ -25,7 +25,7 @@ from .._device import DeviceLike, resolve_device
 from ..ops.attention import flash_attention
 from ..ops.layers import rms_norm, rope
 from ._init import normal
-from ._training import make_train_step_for
+from ._training import make_train_step_for, place_params
 
 
 @dataclasses.dataclass(frozen=True)
@@ -95,6 +95,27 @@ def gpt_init(cfg: GPTConfig, generator: torch.Generator,
                                 cfg.d_model ** -0.5, cfg.dtype, generator,
                                 device)
     return params
+
+
+def gpt_param_axes(cfg: GPTConfig) -> Dict:
+    """Logical axis names per parameter (parallel.partition rule input),
+    the JAX package's table."""
+    layer = {
+        "ln1": ("embed",),
+        "wqkv": ("embed", "mlp"),   # heads concat: shard like mlp over tp
+        "wo": ("mlp", "embed"),
+        "ln2": ("embed",),
+        "w1": ("embed", "mlp"),
+        "w2": ("mlp", "embed"),
+    }
+    axes = {
+        "embed": ("vocab", "embed"),
+        "lnf": ("embed",),
+        "layers": [dict(layer) for _ in range(cfg.n_layers)],
+    }
+    if not cfg.tie_embeddings:
+        axes["head"] = ("embed", "vocab")
+    return axes
 
 
 # ---------------------------------------------------------------------------
@@ -184,14 +205,42 @@ def gpt_loss(params: Dict, batch: Tuple[torch.Tensor, torch.Tensor],
 # training step
 # ---------------------------------------------------------------------------
 def make_train_step(cfg: GPTConfig, optimizer=None,
-                    device: DeviceLike = None):
+                    device: DeviceLike = None, mesh=None, rules=None):
     """Build (init_state, train_step) for ``cfg`` on ``device`` (None: the
     CUDA card; raises without one). ``optimizer`` maps the list of params
     to a ``torch.optim.Optimizer`` (default: AdamW as the JAX package's
-    ``optax.adamw(3e-4, weight_decay=0.01)``). See
-    ``_training.make_train_step_for``."""
+    ``optax.adamw(3e-4, weight_decay=0.01)``). With ``mesh`` and
+    ``rules``, the data-parallel step: feed it ``shard_batch`` of the
+    global batch. See ``_training.make_train_step_for``."""
     device = resolve_device(device)
     return make_train_step_for(
         lambda generator: gpt_init(cfg, generator, device),
         lambda params, batch: gpt_loss(params, batch, cfg),
-        optimizer=optimizer, device=device)
+        optimizer=optimizer, device=device, axes=gpt_param_axes(cfg),
+        mesh=mesh, rules=rules)
+
+
+def shard_params(params: Dict, cfg: GPTConfig, mesh, rules) -> Dict:
+    """Place a param tree onto a mesh per the logical-axis rule table."""
+    return place_params(params, gpt_param_axes(cfg), mesh, rules)
+
+
+def shard_batch(batch, mesh, axis: str = "dp"):
+    """This rank's slice along dim 0 of each array of a global batch: the
+    rows at its coordinate on the mesh's ``axis``, as the JAX package's
+    ``shard_batch`` shards them (a tuple of numpy arrays or tensors in,
+    the same out)."""
+    names = mesh.mesh_dim_names or ()
+    if axis not in names:
+        return batch
+    n = int(mesh.size(names.index(axis)))
+    coord = int(mesh.get_local_rank(axis))
+
+    def part(x):
+        if x.shape[0] % n:
+            raise ValueError(f"batch of {x.shape[0]} rows does not split "
+                             f"over {axis}={n}")
+        rows = x.shape[0] // n
+        return x[coord * rows:(coord + 1) * rows]
+
+    return type(batch)(part(x) for x in batch)

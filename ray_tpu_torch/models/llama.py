@@ -107,6 +107,25 @@ def llama_init(cfg: LlamaConfig, generator: torch.Generator,
     }
 
 
+def llama_param_axes(cfg: LlamaConfig) -> Dict:
+    layer = {
+        "ln1": ("embed",),
+        "wq": ("embed", "mlp"),
+        "wkv": ("embed", "mlp"),
+        "wo": ("mlp", "embed"),
+        "ln2": ("embed",),
+        "w_gate": ("embed", "mlp"),
+        "w_up": ("embed", "mlp"),
+        "w_down": ("mlp", "embed"),
+    }
+    return {
+        "embed": ("vocab", "embed"),
+        "lnf": ("embed",),
+        "head": ("embed", "vocab"),
+        "layers": [dict(layer) for _ in range(cfg.n_layers)],
+    }
+
+
 # ---------------------------------------------------------------------------
 # forward
 # ---------------------------------------------------------------------------
@@ -161,11 +180,12 @@ def llama_loss(params: Dict, batch: Tuple[torch.Tensor, torch.Tensor],
 
 
 def make_llama_train_step(cfg: LlamaConfig, optimizer=None,
-                          device: DeviceLike = None):
+                          device: DeviceLike = None, mesh=None, rules=None):
     """(init_state, train_step) for ``cfg`` on ``device`` (None: the CUDA
     card); the contract of ``models.gpt.make_train_step``."""
     device = resolve_device(device)
     return make_train_step_for(
         lambda generator: llama_init(cfg, generator, device),
         lambda params, batch: llama_loss(params, batch, cfg),
-        optimizer=optimizer, device=device)
+        optimizer=optimizer, device=device, axes=llama_param_axes(cfg),
+        mesh=mesh, rules=rules)

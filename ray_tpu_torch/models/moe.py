@@ -98,6 +98,23 @@ def moe_init(cfg: MoEConfig, generator: torch.Generator,
     }
 
 
+def moe_param_axes(cfg: MoEConfig) -> Dict:
+    layer = {
+        "ln1": ("embed",),
+        "wqkv": ("embed", "mlp"),
+        "wo": ("mlp", "embed"),
+        "ln2": ("embed",),
+        "gate": ("embed", None),
+        "expert_w1": ("expert", "embed", "mlp"),
+        "expert_w2": ("expert", "mlp", "embed"),
+    }
+    return {
+        "embed": ("vocab", "embed"),
+        "lnf": ("embed",),
+        "layers": [dict(layer) for _ in range(cfg.n_layers)],
+    }
+
+
 # ---------------------------------------------------------------------------
 # forward
 # ---------------------------------------------------------------------------
@@ -155,11 +172,12 @@ def moe_loss(params: Dict, batch: Tuple[torch.Tensor, torch.Tensor],
 
 
 def make_moe_train_step(cfg: MoEConfig, optimizer=None,
-                        device: DeviceLike = None):
+                        device: DeviceLike = None, mesh=None, rules=None):
     """(init_state, train_step) for ``cfg`` on ``device`` (None: the CUDA
     card); the contract of ``models.gpt.make_train_step``."""
     device = resolve_device(device)
     return make_train_step_for(
         lambda generator: moe_init(cfg, generator, device),
         lambda params, batch: moe_loss(params, batch, cfg),
-        optimizer=optimizer, device=device)
+        optimizer=optimizer, device=device, axes=moe_param_axes(cfg),
+        mesh=mesh, rules=rules)

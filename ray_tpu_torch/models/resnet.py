@@ -115,6 +115,35 @@ def resnet_init(cfg: ResNetConfig, generator: torch.Generator,
     return params
 
 
+def resnet_param_axes(cfg: ResNetConfig) -> Dict:
+    """Logical axes: convs shard output channels (-> 'mlp' axis for TP)."""
+    conv = (None, None, None, "mlp")
+    bn = {"scale": ("mlp",), "bias": ("mlp",),
+          "mean": ("mlp",), "var": ("mlp",)}
+    axes: Dict[str, Any] = {
+        "stem": {"conv": conv, "bn": dict(bn)},
+        "stages": [],
+        "head": {"w": ("embed", "vocab"), "b": ("vocab",)},
+    }
+    cin = cfg.width
+    for stage, n_blocks in enumerate(cfg.stage_sizes):
+        _, cout = _block_channels(cfg, stage)
+        blocks = []
+        for b in range(n_blocks):
+            blk: Dict[str, Any] = {"conv1": conv, "bn1": dict(bn),
+                                   "conv2": conv, "bn2": dict(bn)}
+            if cfg.bottleneck:
+                blk["conv3"] = conv
+                blk["bn3"] = dict(bn)
+            if b == 0 and (cin != cout or stage > 0):
+                blk["proj"] = conv
+                blk["proj_bn"] = dict(bn)
+            blocks.append(blk)
+            cin = cout
+        axes["stages"].append(blocks)
+    return axes
+
+
 # ---------------------------------------------------------------------------
 # forward
 # ---------------------------------------------------------------------------

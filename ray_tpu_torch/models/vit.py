@@ -112,6 +112,31 @@ def vit_init(cfg: ViTConfig, generator: torch.Generator,
     }
 
 
+def vit_param_axes(cfg: ViTConfig) -> Dict:
+    """Logical axis names per parameter (parallel.partition rule input,
+    same vocabulary as gpt_param_axes so one TP/FSDP rule table covers
+    both families)."""
+    layer = {
+        "ln1": ("embed",),
+        "wqkv": ("embed", "mlp"),
+        "wo": ("mlp", "embed"),
+        "ln2": ("embed",),
+        "w1": ("embed", "mlp"),
+        "w2": ("mlp", "embed"),
+    }
+    return {
+        "patch": ("vocab", "embed"),   # shard like an input embedding
+        "cls": (None, None, "embed"),
+        "pos": (None, "embed"),
+        "lnf": ("embed",),
+        # "classes" is deliberately absent from every rule table: class
+        # counts (10, 1000) rarely divide tp, and the head matmul is a
+        # rounding error of the FLOPs — keep it replicated.
+        "head": ("embed", "classes"),
+        "layers": [dict(layer) for _ in range(cfg.n_layers)],
+    }
+
+
 # ---------------------------------------------------------------------------
 # forward
 # ---------------------------------------------------------------------------
@@ -171,7 +196,7 @@ def vit_loss(params: Dict, batch: Tuple[torch.Tensor, torch.Tensor],
 
 
 def make_vit_train_step(cfg: ViTConfig, optimizer=None,
-                        device: DeviceLike = None):
+                        device: DeviceLike = None, mesh=None, rules=None):
     """(init_state, train_step) for ``cfg`` on ``device`` (None: the CUDA
     card); ``train_step(state, (images, labels))``, otherwise the
     contract of ``models.gpt.make_train_step``."""
@@ -179,7 +204,8 @@ def make_vit_train_step(cfg: ViTConfig, optimizer=None,
     return make_train_step_for(
         lambda generator: vit_init(cfg, generator, device),
         lambda params, batch: vit_loss(params, batch, cfg),
-        optimizer=optimizer, device=device)
+        optimizer=optimizer, device=device, axes=vit_param_axes(cfg),
+        mesh=mesh, rules=rules)
 
 
 def make_classifier(cfg: ViTConfig, params: Optional[Dict] = None,

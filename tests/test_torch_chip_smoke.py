@@ -449,3 +449,111 @@ class TestControlPlanePhases:
         ("", "x", 0)])
     def test_first_difference(self, a, b, want):
         assert cs.first_difference(a, b) == want
+
+
+class TestTrainDpPhase:
+    """The pure-Python parts of the train_dp phase: the digest that holds
+    the checkpoint against the worker's params, and the checks of the
+    worker's report."""
+
+    def _params(self):
+        import torch
+
+        gen = torch.Generator().manual_seed(0)
+        return {"embed": torch.randn(8, 4, generator=gen).bfloat16(),
+                "lnf": torch.ones(4),
+                "layers": [{"w": torch.randn(4, 4, generator=gen)}]}
+
+    def test_digest_follows_the_bytes(self):
+        import torch
+
+        params = self._params()
+        copy = {"embed": params["embed"].clone(),
+                "lnf": params["lnf"].clone(),
+                "layers": [{"w": params["layers"][0]["w"].clone()}]}
+        assert cs.state_digest(params) == cs.state_digest(copy)
+        copy["embed"][0, 0] += 1
+        assert cs.state_digest(params) != cs.state_digest(copy)
+        # the same values in another dtype are another state
+        as_f32 = dict(params, embed=params["embed"].float())
+        assert cs.state_digest(params) != cs.state_digest(as_f32)
+        assert torch.equal(as_f32["embed"].bfloat16(), params["embed"])
+
+    def test_digest_survives_a_checkpoint(self, tmp_path):
+        from ray_tpu_torch.train import Checkpoint
+
+        params = self._params()
+        loaded = Checkpoint.from_state({"params": params, "step": 5},
+                                       str(tmp_path)).to_state()
+        assert cs.state_digest(loaded["params"]) == cs.state_digest(params)
+
+    LAUNCHES = {"flash_fwd": 120, "flash_bwd_dq": 60, "flash_bwd_dkv": 60}
+
+    def _report(self, world=1, **rank_changes):
+        ranks = [{"cuda_visible_devices": str(r), "gpu_ids": [r],
+                  "device_count": 1, "pid": 11 + r, "digest": "d",
+                  "collective_allreduce": {
+                      "type": "Tensor", "device": "cuda:0",
+                      "sum": world * (world + 1) / 2},
+                  "launches": dict(self.LAUNCHES)} for r in range(world)]
+        ranks[-1].update(rank_changes)
+        return {"backend": "nccl", "world": world, "ranks": ranks,
+                "losses": [11.0, 10.5, 10.0, 9.6, 9.2]}
+
+    REFERENCE = [11.0, 10.5, 10.0, 9.6, 9.2, 8.9]
+
+    @pytest.mark.parametrize("world", [1, 4])
+    def test_report_accepted(self, world):
+        got = cs.train_dp_checks(self._report(world), self.REFERENCE, 3, 5)
+        assert all(got["checks"].values()), got
+        assert got["bit_identical"]
+        assert got["expected_launches"] == self.LAUNCHES
+
+    def test_losses_within_band_not_identical(self):
+        report = dict(self._report(), losses=[11.0, 10.5, 10.0, 9.6, 9.25])
+        got = cs.train_dp_checks(report, self.REFERENCE, 3, 5)
+        assert got["checks"]["losses_in_band"] and not got["bit_identical"]
+
+    @pytest.mark.parametrize("world,change,failed", [
+        (1, {"cuda_visible_devices": ""}, "pinned"),
+        (1, {"gpu_ids": []}, "pinned"),
+        (1, {"device_count": 2}, "pinned"),
+        (2, {"gpu_ids": [0], "cuda_visible_devices": "0"}, "pinned"),
+        (1, {"collective_allreduce": {"type": "ndarray", "device": "cpu",
+                                      "sum": 1.0}}, "collective"),
+        (2, {"collective_allreduce": {"type": "Tensor", "device": "cuda:0",
+                                      "sum": 2.0}}, "collective"),
+        (1, {"launches": {"flash_fwd": 24, "flash_bwd_dq": 12,
+                          "flash_bwd_dkv": 12}}, "launches"),
+        (1, {"launches": {"flash_fwd": 60, "flash_bwd_dq": 60,
+                          "flash_bwd_dkv": 60}}, "launches"),  # remat off
+        (1, {"pid": 3}, "other_process"),
+        (2, {"pid": 11}, "other_process"),
+        (2, {"digest": "e"}, "ranks_agree"),
+    ])
+    def test_rank_report_rejected(self, world, change, failed):
+        got = cs.train_dp_checks(self._report(world, **change),
+                                 self.REFERENCE, 3, 5)
+        assert not got["checks"][failed], got
+
+    @pytest.mark.parametrize("change,failed", [
+        ({"backend": "gloo"}, "nccl"),
+        ({"losses": [11.0, 10.5, 10.0, 9.6, float("nan")]},
+         "losses_finite"),
+        ({"losses": [11.0, 10.5, 10.0, 9.6, 9.5]}, "losses_in_band"),
+        ({"losses": [11.0, 10.5, 10.0, 9.6]}, "losses_in_band"),
+        ({"world": 2}, "pinned"),
+    ])
+    def test_report_rejected(self, change, failed):
+        got = cs.train_dp_checks(dict(self._report(), **change),
+                                 self.REFERENCE, 3, 5)
+        assert not got["checks"][failed], got
+
+    def test_launches_of_five_remat_steps(self):
+        assert cs.TRAIN_DP_STEPS == 5
+        got = cs.train_dp_checks(self._report(), self.REFERENCE, 3, 5)
+        assert got["expected_launches"] == {
+            "flash_fwd": 120, "flash_bwd_dq": 60, "flash_bwd_dkv": 60}
+        # the band is no looser than train_vs_cpu's bf16 loss band
+        bf16 = dict((d, t) for d, _, t in cs.VS_CPU_RUNS)["bfloat16"]
+        assert cs.TOL_TRAIN_DP_LOSS <= bf16["loss"]

@@ -26,7 +26,12 @@ REF = os.path.join(REPO, "ray_tpu")
 
 # The copied control plane, by subpackage (module files under the port).
 COPIED = ("api.py", "exceptions.py", "_private", "_native", "util", "dag",
-          "serve", "data")
+          "serve", "data", "train")
+# Keys of the reference's TPU detection that the port's GPU detection
+# replaces (``_private/resources.py``): RAY_TPU_<name> -> its RTT_ key,
+# or None where the port has no counterpart (GCE metadata serves TPU VMs).
+RENAMED_KEYS = {"RAY_TPU_NUM_CHIPS": "RTT_NUM_GPUS",
+                "RAY_TPU_USE_GCE_METADATA": None}
 
 
 def _sources(root, part=""):
@@ -115,13 +120,20 @@ class TestRuntime:
         np.testing.assert_array_equal(rt.get(rt.put(arr)), arr)
 
     def test_gpu_is_a_declared_resource(self, cluster):
+        # The declared GPU is reserved and pinned: the task sees device 0
+        # alone, and a task without a GPU sees none.
         assert rt.cluster_resources()["GPU"] == 1.0
 
         @rt.remote(num_gpus=1)
         def on_gpu():
-            return "ran"
+            return os.environ.get("CUDA_VISIBLE_DEVICES"), rt.get_gpu_ids()
 
-        assert rt.get(on_gpu.remote(), timeout=60) == "ran"
+        @rt.remote
+        def off_gpu():
+            return os.environ.get("CUDA_VISIBLE_DEVICES"), rt.get_gpu_ids()
+
+        assert rt.get(on_gpu.remote(), timeout=60) == ("0", [0])
+        assert rt.get(off_gpu.remote(), timeout=60) == ("", [])
 
     def test_session_and_store_use_the_copy_prefix(self, cluster):
         from ray_tpu_torch._private import state
@@ -247,7 +259,8 @@ class TestStaticIsolation:
                 continue
             ref_text, port_text = open(ref_path).read(), open(port_path).read()
             for key in set(re.findall(r"RAY_TPU_[A-Z0-9_]+", ref_text)):
-                assert "RTT_" + key[len("RAY_TPU_"):] in port_text, key
+                want = RENAMED_KEYS.get(key, "RTT_" + key[len("RAY_TPU_"):])
+                assert want is None or want in port_text, key
                 renamed += 1
         assert renamed > 40
         assert keys(REF, "RTT_") == set()

@@ -448,6 +448,31 @@ class TestIsolation:
                 "ray_tpu_torch._private.protocol_model"} <= set(out)
         assert [m for m in out[1:] if _forbidden(m) or m == "torch"] == []
 
+    def test_train_and_collective_import_leaves_jax_and_ray_tpu_out(self):
+        # Train and the collective group load torch where they run, not
+        # at import: the control plane's workers start without it.
+        code = (
+            "import sys\n"
+            "import ray_tpu_torch.train, ray_tpu_torch.train.v2\n"
+            "import ray_tpu_torch.util.collective\n"
+            "from ray_tpu_torch.util.collective.collective_group import "
+            "torch_collective_group, local_group\n"
+            "import ray_tpu_torch.parallel.mesh\n"
+            "import ray_tpu_torch.parallel.partition\n"
+            "print('torch' in sys.modules)\n"
+            "import ray_tpu_torch.models._training\n"
+            "print('\\n'.join(sys.modules))\n")
+        out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                             capture_output=True, text=True, timeout=120,
+                             check=True).stdout.split()
+        assert out[0] == "False"
+        assert {"ray_tpu_torch.train.trainer", "ray_tpu_torch.train.backend",
+                "ray_tpu_torch.train.v2.controller",
+                "ray_tpu_torch.util.collective.collective",
+                "ray_tpu_torch.util.collective.collective_group."
+                "torch_collective_group"} <= set(out)
+        assert [m for m in out[1:] if _forbidden(m)] == []
+
     def test_no_forbidden_import_in_source(self):
         files = [os.path.join(REPO, "chip_smoke.py")]
         for root, _, names in os.walk(os.path.join(REPO, "ray_tpu_torch")):
