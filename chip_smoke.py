@@ -48,11 +48,23 @@ phase:
                     K1): 16 prompts bucketed to T=1024, 8 greedy steps,
                     K1's launches counted over exactly that run; its
                     first-step logits against the port on the CPU
+     dag_fused      the same greedy step as a two-node fused DAG
+                    (gpt_forward, argmax) under compile_fused(jit=True):
+                    one CUDA graph captured per input signature (capture
+                    seconds), 8 greedy steps as replays whose tokens must
+                    equal the slice's, K1 12 times a replay by the fused
+                    callable's count and by torch.profiler's (a trace
+                    with no device event at all is taken again, at most
+                    3 takes); eager and replay ms at B=16, T=1024 and at
+                    B=1, T=128
   7. online         LLMEngine and ContinuousBatchingEngine at GPT-2-small
                     width: time to first token, decode tokens/s, and the
                     KV-cache logits against a full forward
   8. runtime        ray_tpu_torch.init(num_cpus=4, num_gpus=1): a task,
-                    an actor, put/get of 64 MB; after shutdown the
+                    an actor, put/get of 64 MB; a 64 MB bf16 CUDA tensor
+                    put by the driver and read back as an equal CPU
+                    tensor by the driver and by a task that sees no card
+                    (put and get timed); after shutdown the
                     head's own session and store directories
                     ($TMPDIR/rtt_sessions/*, /dev/shm/rtt_<tag>_*) are gone
   9. serve_llm      build_llm_app(GPT-2 small) under the port's Serve,
@@ -93,6 +105,22 @@ phase:
                     MFU, both processes' memory; its 5 losses against
                     phase 11's first 5 steps, and its checkpoint loaded
                     here against the digest of its params
+     train_feed     the slice: make_vit_train_step(ViTConfig.vit_b16())
+                    (remat) in a TorchTrainer worker pinned to the card,
+                    fed by get_dataset_shard("train").iter_torch_batches(
+                    device="cuda", device_prefetch=2) from data.from_numpy
+                    of 6 x 64 seeded images zipped with their labels
+                    (231 MB in the store): a warm-up step and 5 timed
+                    steps, K1/K2/K3 launched 120/60/60 in the worker's
+                    process, every batch on cuda:0 equal to its host rows,
+                    the losses bit-identical to the same steps in process;
+                    the fed step against a step on a batch already on the
+                    card; a profiling.trace of one fed step (it must name
+                    K1-K3, an empty trace taken again over the next step
+                    as in dag_fused; its host-to-device copies' bytes, ms
+                    and the share overlapping a kernel); device_memory_stats
+                    against torch's peak; a CUDA tensor the worker puts,
+                    read back equal by the driver
  13. train_vs_cpu   one step at GPT-2-small width and 2 layers, card vs
                     CPU from the same weights: loss, every gradient, every
                     param after AdamW (f32 at T=128, bf16 at ragged T=100)
@@ -118,7 +146,8 @@ phase:
                     must reject
  21. kernels        one entry per kernel: launches on each main path
                     (the processor's counted in its pool actor, the
-                    Train worker's in its process), error,
+                    Train workers' in their processes, the fused DAG's
+                    replays by its own count), error,
                     times and bound at the four model shapes and above
                     the head limit, and its design
 
@@ -558,7 +587,250 @@ def phase_slice():
     check(err <= TOL_MODEL_NORM, f"card vs CPU logits differ by {err}")
     profile_device(lambda: stage(batch), "profile",
                    "GPTInferenceStage, gpt2_small, 16x1024, 8 steps")
+    return launches, {"params": stage._params, "tokens": batch["tokens"],
+                      "generated": news}
+
+
+def left_pad(token_lists, length: int, vocab: int):
+    """Token lists left-padded with zeros to [len, length] int64, each
+    cut to its last ``length`` tokens mod ``vocab``: what
+    GPTInferenceStage does to its bucket."""
+    import numpy as np
+
+    out = np.zeros((len(token_lists), length), np.int64)
+    for i, t in enumerate(token_lists):
+        t = np.asarray(t)[-length:] % vocab
+        out[i, length - len(t):] = t
+    return out
+
+
+def greedy_dag(params, cfg):
+    """GPT's forward and greedy argmax as a two-node pure-function DAG:
+    tokens [B, T] -> the next token of each row [B]."""
+    import ray_tpu_torch as rt
+    from ray_tpu_torch.dag import InputNode
+    from ray_tpu_torch.models import gpt_forward
+
+    @rt.remote
+    def forward(tokens):
+        return gpt_forward(params, tokens, cfg)
+
+    @rt.remote
+    def greedy(logits):
+        return logits[:, -1, :].argmax(dim=-1)
+
+    with InputNode() as inp:
+        return greedy.bind(forward.bind(inp))
+
+
+def greedy_run(step, tokens, steps: int):
+    """``steps`` greedy steps of ``step`` (tokens -> next tokens), each
+    sliding the window by one token as GPTInferenceStage does; the new
+    tokens [B, steps]."""
+    import torch
+
+    news = []
+    for _ in range(steps):
+        nxt = step(tokens)
+        tokens = torch.cat([tokens[:, 1:], nxt[:, None]], dim=1)
+        news.append(nxt)
+    return torch.stack(news, dim=1)
+
+
+# The dag_fused phase: the serving slice's bucket, and a short prompt's
+# prefill where launches dominate.
+DAG_STEPS = 8
+DAG_SIZES = [(16, 1024), (1, 128)]
+
+
+def phase_dag_fused(slice_ctx):
+    """The serving slice's greedy step as a fused DAG on the card:
+    gpt_forward and argmax, compile_fused(jit=True), at phase_slice's
+    bucket (B=16, T=1024) and at B=1, T=128. The first call of each
+    signature warms up and captures its CUDA graph (timed); then
+    DAG_STEPS greedy steps run as replays with the kernels' launches
+    counted over exactly that run: K1 once a layer a replay, carried by
+    the fused callable. The tokens must equal phase_slice's eager ones.
+    torch.profiler must count the same K1 launches over one replay
+    (take_trace: an empty trace is taken again over another replay).
+    Eager (the same DAG, jit=False) and replay ms at both sizes."""
+    import torch
+
+    from ray_tpu_torch.llm import TokenizeStage
+    from ray_tpu_torch.models import GPTConfig
+    from ray_tpu_torch.ops import _kernels
+
+    cfg = GPTConfig.gpt2_small()
+    dag = greedy_dag(slice_ctx["params"], cfg)
+    fused, eager = dag.compile_fused(jit=True), dag.compile_fused(jit=False)
+    tokenize = TokenizeStage(max_length=cfg.max_seq_len)
+    rows, launches = [], None
+    for b, t in DAG_SIZES:
+        lists = slice_ctx["tokens"] if (b, t) == (16, 1024) else \
+            tokenize({"prompt": _prompts(b, t - 28, t)})["tokens"]
+        tokens = torch.from_numpy(left_pad(lists, t, cfg.vocab_size)).cuda()
+        fused(tokens)  # warm-up and capture
+        torch.cuda.synchronize()
+        key = list(fused.capture_s)[-1]  # this size's signature
+        capture_s = fused.capture_s[key]
+        per_replay = dict(fused.graphs[key].launches)
+        reset_launches()
+        with torch.no_grad():
+            replayed = greedy_run(fused, tokens, DAG_STEPS).cpu()
+        counted = dict(_kernels.LAUNCHES)
+        with torch.no_grad():
+            eager_tokens = greedy_run(eager, tokens, DAG_STEPS).cpu()
+        profiled = take_trace(lambda: (fused(tokens),
+                                       torch.cuda.synchronize()))
+        with torch.no_grad():
+            eager_ms = cuda_ms(lambda: eager(tokens))
+        replay_ms = cuda_ms(lambda: fused(tokens))
+        row = {"batch": b, "seq": t, "steps": DAG_STEPS,
+               "capture_s": capture_s, "graphs": len(fused.graphs),
+               "per_replay_launches": per_replay,
+               "launches": counted,
+               "profiled_k1": profiled["kernels"]["flash_fwd"],
+               "empty_traces": profiled["empty_traces"],
+               "eager_ms": eager_ms, "replay_ms": replay_ms,
+               "replay_speedup": eager_ms / replay_ms,
+               "tokens_equal_eager_dag": bool(torch.equal(replayed,
+                                                           eager_tokens))}
+        if (b, t) == (16, 1024):
+            want = torch.from_numpy(slice_ctx["generated"]).long()
+            row["tokens_equal_slice"] = bool(torch.equal(replayed, want))
+            launches = counted
+        rows.append(row)
+    for row in rows:
+        emit("dag_fused", **row)
+    failed = dag_checks(rows, cfg.n_layers)
+    check(not failed, f"dag_fused checks failed: {failed}")
+    del fused, eager, dag
+    torch.cuda.empty_cache()
     return launches
+
+
+def dag_checks(rows, n_layers: int) -> list:
+    """The names of the dag_fused checks that fail: K1 once a layer a
+    replay by the callable's count and by the profiler's, and no K2 or
+    K3; DAG_STEPS replays counted; the replayed tokens equal to the eager
+    DAG's and, at the slice's bucket, to phase_slice's; one graph per
+    size."""
+    failed = []
+    for i, r in enumerate(rows):
+        name = f"{r['batch']}x{r['seq']}"
+        if r["per_replay_launches"] != {"flash_fwd": n_layers}:
+            failed.append(f"{name}: per-replay launches")
+        if r["profiled_k1"] != n_layers:
+            failed.append(f"{name}: profiler K1 count {r['profiled_k1']}, "
+                          f"want {n_layers} ({r.get('empty_traces')} empty "
+                          "traces)")
+        if r["launches"] != {"flash_fwd": n_layers * r["steps"],
+                             "flash_bwd_dq": 0, "flash_bwd_dkv": 0}:
+            failed.append(f"{name}: launches over the replays")
+        if not r["tokens_equal_eager_dag"]:
+            failed.append(f"{name}: tokens vs the eager DAG")
+        if r.get("tokens_equal_slice") is False:
+            failed.append(f"{name}: tokens vs phase_slice")
+        if r["graphs"] != i + 1:
+            failed.append(f"{name}: graphs cached")
+    if not any("tokens_equal_slice" in r for r in rows):
+        failed.append("the slice's bucket was not run")
+    return failed
+
+
+# torch.profiler (torch 2.11 with CUPTI 12.8 on an H100) now and then hands
+# back a trace that holds the host's runtime calls but none of the device's
+# events, not even a copy outside any graph, for work that ran; such a
+# trace counts nothing and is taken again, at most this many times.
+TRACE_TAKES = 3
+
+
+def take_trace(run, dir=None) -> dict:
+    """trace_summary of a profiling.trace over ``run()``, which must end
+    in a device sync. A trace that holds no device event at all is taken
+    again over another ``run()``, at most TRACE_TAKES times; one with
+    device events is kept, whatever it counts. ``empty_traces`` is the
+    number of takes that came back empty."""
+    import tempfile
+
+    from ray_tpu_torch.util import profiling
+
+    for take in range(1, TRACE_TAKES + 1):
+        with tempfile.TemporaryDirectory(prefix="rtt_trace_",
+                                         dir=dir) as logdir:
+            with profiling.trace(logdir):
+                run()
+            summary = trace_summary(trace_file(logdir))
+        if summary["device_events"]:
+            break
+    summary["empty_traces"] = take - bool(summary["device_events"])
+    return summary
+
+
+def trace_file(logdir: str) -> str:
+    """The one Chrome trace that profiling.trace wrote into ``logdir``."""
+    names = [n for n in os.listdir(logdir) if n.endswith(".pt.trace.json")]
+    check(len(names) == 1, f"traces in {logdir}: {names}")
+    return os.path.join(logdir, names[0])
+
+
+# The port's kernels by the name their trace events carry.
+TRACE_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+# The categories of a trace's events that ran on the card.
+DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+
+
+def union_length(intervals) -> float:
+    """Total length covered by (start, end) intervals."""
+    total, end = 0.0, None
+    for a, b in sorted(intervals):
+        if end is None or a > end:
+            total += b - a
+            end = b
+        elif b > end:
+            total += b - end
+            end = b
+    return total
+
+
+def overlap_share(copies, kernels) -> float:
+    """The share of the copies' time, (start, end) each, during which a
+    kernel ran; None without copies."""
+    copy_time = union_length(copies)
+    if not copy_time:
+        return None
+    both = [(max(a, c), min(b, d)) for a, b in copies for c, d in kernels
+            if max(a, c) < min(b, d)]
+    return union_length(both) / copy_time
+
+
+def trace_summary(path: str) -> dict:
+    """From a Chrome trace of torch.profiler: launches of each port
+    kernel (K1-K3), the number of events that ran on the card (kernels,
+    copies, memsets), the device kernels' busy ms, and the host-to-device
+    copies' count, bytes, ms and the share of their time that overlaps
+    a kernel."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    copies = [e for e in events if e.get("cat") == "gpu_memcpy"
+              and "HtoD" in e.get("name", "")]
+
+    def spans(evs):
+        return [(float(e["ts"]), float(e["ts"]) + float(e["dur"]))
+                for e in evs]
+
+    return {
+        "kernels": {k: sum(k in e.get("name", "") for e in kernels)
+                    for k in TRACE_KERNELS},
+        "device_events": sum(e.get("cat") in DEVICE_CATS for e in events),
+        "kernel_busy_ms": union_length(spans(kernels)) / 1e3,
+        "htod_copies": len(copies),
+        "htod_bytes": sum(int(e.get("args", {}).get("bytes", 0))
+                          for e in copies),
+        "htod_ms": union_length(spans(copies)) / 1e3,
+        "htod_overlap_share": overlap_share(spans(copies), spans(kernels)),
+    }
 
 
 def _kernel_group(name: str) -> str:
@@ -1012,9 +1284,12 @@ def current_node():
 
 def phase_runtime():
     """The port's control plane on the card's machine: init with the GPU
-    declared, a task, an actor, put/get of 64 MB; after shutdown no
-    session or store directory of the copy is left."""
+    declared, a task, an actor, put/get of 64 MB; a 64 MB bf16 CUDA
+    tensor put by the driver, read back as an equal CPU tensor by a task
+    that sees no card and by the driver; after shutdown no session or
+    store directory of the copy is left."""
     import numpy as np
+    import torch
 
     import ray_tpu_torch as rt
 
@@ -1051,14 +1326,64 @@ def phase_runtime():
         back = rt.get(rt.put(arr), timeout=120)
         put_get_s = time.perf_counter() - t0
         same = bool(np.array_equal(back, arr))
-        during = copy_dirs(node)
         del back
+
+        @rt.remote
+        def read_without_gpu(t):
+            import torch
+            return (os.environ.get("CUDA_VISIBLE_DEVICES"),
+                    torch.cuda.is_available(), type(t).__name__, t)
+
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        cuda_t = torch.randn(32 << 20, device="cuda", generator=gen,
+                             dtype=torch.bfloat16)  # 64 MB
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ref = rt.put(cuda_t)
+        cuda_put_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        from_store = rt.get(ref, timeout=120)
+        cuda_get_s = time.perf_counter() - t0
+        visible, task_cuda, task_type, from_task = rt.get(
+            read_without_gpu.remote(ref), timeout=120)
+        host_t = cuda_t.cpu()
+        # A tensor nested in a container keeps torch's pickling (as a
+        # nested jax.Array keeps jax's): recorded, not required.
+        try:
+            rt.get(read_without_gpu.remote({"t": cuda_t[:4]}), timeout=120)
+            nested = "read"
+        except rt.exceptions.TaskError as e:
+            nested = "TaskError: " + next(
+                (line.strip() for line in str(e).splitlines()
+                 if line.startswith("RuntimeError")), str(e)[:200])
+        tensor_rows = {
+            "driver": {"device": str(from_store.device),
+                       "dtype": str(from_store.dtype),
+                       "equal": torch.equal(from_store, host_t)},
+            "zero_gpu_task": {"cuda_visible_devices": visible,
+                              "cuda_available": task_cuda,
+                              "type": task_type,
+                              "device": str(from_task.device),
+                              "dtype": str(from_task.dtype),
+                              "equal": torch.equal(from_task, host_t)}}
+        del ref, from_store, from_task, cuda_t, host_t
+        during = copy_dirs(node)
     finally:
         rt.shutdown()
     after = copy_dirs(node)
     emit("runtime", init_s=init_s, resources=resources, task=task,
          task_s=task_s, actor_calls_s=actor_s, put_get_64mb_s=put_get_s,
-         put_get_equal=same, dirs_during=during, dirs_after=after)
+         put_get_equal=same, cuda_tensor_put_64mb_s=cuda_put_s,
+         cuda_tensor_get_64mb_s=cuda_get_s, cuda_tensor=tensor_rows,
+         nested_cuda_tensor_in_zero_gpu_task=nested,
+         dirs_during=during, dirs_after=after)
+    check(tensor_rows == {
+        "driver": {"device": "cpu", "dtype": "torch.bfloat16",
+                   "equal": True},
+        "zero_gpu_task": {"cuda_visible_devices": "", "cuda_available":
+                          False, "type": "Tensor", "device": "cpu",
+                          "dtype": "torch.bfloat16", "equal": True}},
+        f"a CUDA tensor through the store: {tensor_rows}")
     check(resources.get("GPU") == 1.0, f"GPU not declared: {resources}")
     check(task == 42, f"task returned {task}")
     check([n for n, _ in bumps] == [1, 2, 3]
@@ -1683,6 +2008,227 @@ def phase_train_dp(peaks, reference_losses):
     return ranks[0]
 
 
+# The train_feed phase: ViT-B/16 (remat, the preset) in a Train worker
+# pinned to the card, its batches read through the device feed from a
+# Dataset of FEED_BATCHES x FEED_BATCH images made from FEED_SEED: one
+# warm-up step, then FEED_BATCHES - 1 timed steps.
+FEED_BATCHES, FEED_BATCH, FEED_SEED = 6, 64, 11
+# Elements of the CUDA tensor the worker puts for the driver to read.
+FEED_PUT_ELEMENTS = 1 << 20
+
+
+def feed_data(cfg, batches: int, b: int, seed: int):
+    """(images [batches*b, H, W, C] f32 NHWC, labels [batches*b] int64)
+    from numpy's generator seeded ``seed``: the Dataset's rows."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    images = rng.standard_normal(
+        (batches * b, cfg.image_size, cfg.image_size, cfg.channels),
+        dtype=np.float32)
+    labels = rng.integers(0, cfg.num_classes, batches * b, dtype=np.int64)
+    return images, labels
+
+
+def train_feed_loop(config):
+    """train_loop_per_worker of the train_feed phase, in a worker pinned
+    to the card: make_vit_train_step(vit_b16) fed by
+    ``get_dataset_shard("train").iter_torch_batches(device="cuda",
+    device_prefetch=2, drop_last=True)``: a warm-up step, then the timed
+    steps, each from taking its batch off the feed to fetching its loss,
+    the kernels' launches counted in this process over exactly those;
+    each batch held against the host rows it came from (on the card,
+    after its step); then as many steps on a batch already on the card;
+    then a profiling.trace of one fed step inside the next epoch (its
+    upload window busy), summarized here (take_trace: an empty trace is
+    taken again over the next fed step); device_memory_stats against
+    torch's peak; and a put of a CUDA tensor for the driver to read."""
+    import torch
+
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import train
+    from ray_tpu_torch.models import ViTConfig, make_vit_train_step
+    from ray_tpu_torch.ops import _kernels
+    from ray_tpu_torch.util import profiling
+
+    torch.backends.cuda.matmul.allow_tf32 = False  # as in the driver
+    cfg = ViTConfig.vit_b16()
+    n, b = config["batches"], config["batch"]
+    images, labels = feed_data(cfg, n, b, config["seed"])
+    host = (torch.from_numpy(images).cuda(), torch.from_numpy(labels).cuda())
+    init_state, train_step = make_vit_train_step(cfg)
+    state = init_state(torch.Generator(device="cuda").manual_seed(0))
+    shard = train.get_dataset_shard("train")
+
+    def feed():
+        return iter(shard.iter_torch_batches(
+            batch_size=b, device="cuda", device_prefetch=2, drop_last=True))
+
+    def step(batch):
+        nonlocal state
+        state, m = train_step(state, (batch["image"], batch["label"]))
+        return float(m["loss"])  # the fetch ends the step
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, fed_s, arrived = [], [], []
+    batches = feed()
+    for i in range(n):
+        if i == 1:
+            before = dict(_kernels.LAUNCHES)
+        t0 = time.perf_counter()
+        batch = next(batches)
+        losses.append(step(batch))
+        if i:
+            fed_s.append(time.perf_counter() - t0)
+        rows = slice(i * b, (i + 1) * b)
+        arrived.append({
+            "devices": sorted({str(t.device) for t in batch.values()}),
+            "equal": torch.equal(batch["image"], host[0][rows])
+            and torch.equal(batch["label"], host[1][rows])})
+        del batch
+    launches = {k: _kernels.LAUNCHES[k] - before.get(k, 0)
+                for k in _kernels.LAUNCHES}
+    check(next(batches, None) is None, "the feed gave more batches")
+
+    resident = {"image": host[0][:b], "label": host[1][:b]}
+    resident_s = []
+    for _ in range(n - 1):
+        t0 = time.perf_counter()
+        step(resident)
+        resident_s.append(time.perf_counter() - t0)
+
+    batches = feed()
+    step(next(batches))
+    traced = take_trace(lambda: (step(next(batches)),
+                                 torch.cuda.synchronize()),
+                        dir=config["storage"])
+    del batches
+    stats = profiling.device_memory_stats()
+    put = rt.put(torch.arange(FEED_PUT_ELEMENTS, dtype=torch.float32,
+                              device="cuda"))
+    train.report({
+        "pid": os.getpid(),
+        "cuda_visible_devices": os.environ.get("CUDA_VISIBLE_DEVICES"),
+        "device_count": torch.cuda.device_count(),
+        "losses": losses, "launches": launches, "arrived": arrived,
+        "fed_step_ms_runs": [t * 1e3 for t in fed_s],
+        "fed_step_ms_median": statistics.median(fed_s) * 1e3,
+        "resident_step_ms_runs": [t * 1e3 for t in resident_s],
+        "resident_step_ms_median": statistics.median(resident_s) * 1e3,
+        "images_per_s": b / statistics.median(fed_s),
+        "traced_step": traced,
+        "memory_stats": stats,
+        "max_memory_allocated": torch.cuda.max_memory_allocated(),
+        "put_ref": put})
+
+
+def train_feed_checks(m: dict, reference, driver_pid: int, steps: int
+                      ) -> dict:
+    """A train_feed report against what the phase requires: the worker
+    is another process that sees one card; K1, K2, K3 launched as
+    ``steps`` ViT-B/16 steps with remat; every batch arrived on cuda:0
+    equal to its host rows; the losses equal ``reference`` (the driver's
+    in-process steps on the same batches), bit for bit; the trace names
+    K1-K3 as one step launches them; device_memory_stats' peak is
+    torch's."""
+    expected = {k: v * steps for k, v in expected_launches(12, True).items()}
+    ours, theirs = m["losses"], list(reference)
+    traced = m["traced_step"]["kernels"]
+    return {
+        "expected_launches": expected,
+        "loss_rel_errs": [abs(a - b) / abs(b) for a, b in zip(ours, theirs)],
+        "checks": {
+            "other_process": m["pid"] != driver_pid,
+            "pinned": m["cuda_visible_devices"] == "0"
+            and m["device_count"] == 1,
+            "launches": m["launches"] == expected,
+            "arrived_on_card": all(a["devices"] == ["cuda:0"]
+                                   for a in m["arrived"]),
+            "arrived_equal": len(m["arrived"]) == len(theirs)
+            and all(a["equal"] for a in m["arrived"]),
+            "losses_equal": ours == theirs
+            and all(math.isfinite(x) for x in ours),
+            "trace_names_kernels": traced == expected_launches(12, True),
+            "memory_stats": m["memory_stats"].get("peak_bytes_in_use")
+            == m["max_memory_allocated"] > 0}}
+
+
+def phase_train_feed(peaks):
+    """The slice: the ViT-B/16 step in a TorchTrainer worker pinned to
+    the card, fed by the device feed from a Dataset in the store
+    (data.from_numpy of the images, zipped with the labels). Its losses
+    are held against the same steps in process on the same batches, its
+    launches counted in its process; the fed step against a resident
+    one, and the trace's host-to-device copies. The worker's put of a
+    CUDA tensor is read back here."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import data
+    from ray_tpu_torch.models import ViTConfig, make_vit_train_step
+    from ray_tpu_torch.train import RunConfig, ScalingConfig, TorchTrainer
+
+    cfg = ViTConfig.vit_b16()
+    n, b = FEED_BATCHES, FEED_BATCH
+    images, labels = feed_data(cfg, n, b, FEED_SEED)
+    init_state, train_step = make_vit_train_step(cfg)
+    state = init_state(torch.Generator(device="cuda").manual_seed(0))
+    reference = []
+    for i in range(n):
+        rows = slice(i * b, (i + 1) * b)
+        state, m = train_step(state, (torch.from_numpy(images[rows]).cuda(),
+                                      torch.from_numpy(labels[rows]).cuda()))
+        reference.append(float(m["loss"]))
+    del state, m
+    torch.cuda.empty_cache()
+
+    storage = tempfile.mkdtemp(prefix="rtt_train_feed_")
+    rt.init(num_cpus=4)
+    node = current_node()
+    try:
+        t0 = time.perf_counter()
+        ds = data.from_numpy(images, column="image",
+                             override_num_blocks=n).zip(
+            data.from_numpy(labels, column="label", override_num_blocks=n))
+        result = TorchTrainer(
+            train_feed_loop,
+            train_loop_config={"batches": n, "batch": b, "seed": FEED_SEED,
+                               "storage": storage},
+            scaling_config=ScalingConfig(num_workers=1, use_gpu=True),
+            run_config=RunConfig(name="train_feed", storage_path=storage),
+            datasets={"train": ds},
+        ).fit()
+        fit_s = time.perf_counter() - t0
+        check(result.error is None, f"train_feed failed: {result.error!r}")
+        m = dict(result.metrics)
+        put = rt.get(m.pop("put_ref"), timeout=120)
+        store = {"capacity_mb": node.store.capacity / 1e6,
+                 "used_mb_after_fit": node.store.used_bytes / 1e6}
+    finally:
+        rt.shutdown()
+        shutil.rmtree(storage, ignore_errors=True)
+    got = train_feed_checks(m, reference, os.getpid(), n - 1)
+    got["checks"]["worker_put_read_back"] = (
+        isinstance(put, torch.Tensor) and put.device.type == "cpu"
+        and torch.equal(put, torch.arange(FEED_PUT_ELEMENTS,
+                                          dtype=torch.float32)))
+    got["checks"]["no_dirs_left"] = copy_dirs(node) == []
+    emit("train_feed", config="vit_b16", remat=cfg.remat, batch=b,
+         batches=n, dtype="bfloat16", dataset_mb=(images.nbytes
+                                                  + labels.nbytes) / 1e6,
+         object_store=store,
+         driver_pid=os.getpid(), fit_s=fit_s, reference_losses=reference,
+         fed_vs_resident=m["fed_step_ms_median"]
+         / m["resident_step_ms_median"], **got, **m)
+    failed = [name for name, ok in got["checks"].items() if not ok]
+    check(not failed, f"train_feed checks failed: {failed}")
+    return m["launches"]
+
+
 # (dtype, T, tolerances) of one train step card vs CPU, normalized by each
 # leaf's max |cpu|:
 # f32: the same math summed in other orders on two devices. The gradients
@@ -2101,12 +2647,15 @@ def main() -> int:
     compared = phase_compare(peaks)
     compared_bwd = phase_compare_bwd(peaks)
     over_limit = phase_heads_over_limit(peaks)
-    serving = phase_slice()
+    serving, slice_ctx = phase_slice()
+    dag_fused = phase_dag_fused(slice_ctx)
+    del slice_ctx
     phase_online()
     phase_runtime()
     pool_actor = phase_control_plane()
     trained = phase_train(peaks)
     train_dp = phase_train_dp(peaks, trained[True]["losses"])
+    train_feed = phase_train_feed(peaks)
     phase_train_vs_cpu()
     phase_train_profile()
     llama = phase_llama_train(peaks)
@@ -2116,16 +2665,20 @@ def main() -> int:
     phase_resnet()
 
     # Launches on each main path, each counted over exactly its run:
-    # the batch serving slice, the same stage's call inside a Data pool
-    # actor (counted in that process), one GPT-2-small train step with
-    # remat (the preset) and one without, the 5 steps of the Train
-    # worker (counted in its process), one llama, ViT and MoE train step
-    # each, and one ViT classifier call.
+    # the batch serving slice, its 8 greedy steps as CUDA-graph replays
+    # of the fused DAG, the same stage's call inside a Data pool actor
+    # (counted in that process), one GPT-2-small train step with remat
+    # (the preset) and one without, the 5 steps of the Train worker and
+    # the 5 fed ViT steps of the train_feed worker (each counted in its
+    # process), one llama, ViT and MoE train step each, and one ViT
+    # classifier call.
     pool = {name: pool_actor[name] for name in serving}
-    paths = {"serving": serving, "processor_pool_actor": pool,
+    paths = {"serving": serving, "dag_fused_replays": dag_fused,
+             "processor_pool_actor": pool,
              "train": trained[True]["launches"],
              "train_no_remat": trained[False]["launches"],
              "train_dp_worker": train_dp["launches"],
+             "train_feed_worker": train_feed,
              "llama_train": llama["launches"], **vit, "moe_train": moe}
     by_path = {name: {path: launches[name]
                       for path, launches in paths.items()}

@@ -2,9 +2,10 @@
 
 TPU-native analogue of the reference's serialization stack
 (python/ray/_private/serialization.py + includes/serialization.pxi): arbitrary
-Python objects go through cloudpickle; numpy arrays are
-split out as out-of-band PickleBuffers so they can be written to — and later
-mapped zero-copy out of — the shared-memory object store.
+Python objects go through cloudpickle; numpy arrays (and torch tensors,
+brought to host first) are split out as out-of-band PickleBuffers so they
+can be written to — and later mapped zero-copy out of — the shared-memory
+object store.
 
 Wire format of a serialized object:
 
@@ -56,6 +57,77 @@ def note_serialized_ref(object_id):
 
 def _align(n: int) -> int:
     return (n + _ALIGN - 1) & ~(_ALIGN - 1)
+
+
+# Same-size integer dtypes for a tensor dtype numpy lacks (bf16, fp8,
+# complex32): its bytes travel as this view, its dtype by name.
+_INT_OF_SIZE = {1: "int8", 2: "int16", 4: "int32", 8: "int64"}
+
+
+class _HostTensor:
+    """A torch.Tensor brought to host memory for the store: its bytes as a
+    numpy array (pickled out of band, like any array), its dtype by name,
+    and whether it requires grad. Unpickles as a CPU tensor."""
+
+    __slots__ = ("array", "dtype", "requires_grad")
+
+    def __init__(self, array, dtype: str, requires_grad: bool):
+        self.array, self.dtype = array, dtype
+        self.requires_grad = requires_grad
+
+    def __reduce__(self):
+        return (_tensor_from_host,
+                (self.array, self.dtype, self.requires_grad))
+
+
+def _tensor_from_host(array, dtype: str, requires_grad: bool):
+    """Rebuild a ``_HostTensor`` as a CPU tensor over ``array``'s memory
+    (the store's pages when read from shared memory, as a numpy array
+    is); an array over read-only bytes (an inline reply) is copied first,
+    since torch has no read-only tensor."""
+    import torch
+
+    if not array.flags.writeable:
+        array = array.copy()
+    t = torch.from_numpy(array)
+    want = getattr(torch, dtype)
+    if t.dtype != want:
+        t = t.view(want)
+    return t.requires_grad_() if requires_grad else t
+
+
+def _to_host(obj: Any) -> Any:
+    """Bring a top-level torch.Tensor on any device to host memory before
+    pickling (counterpart of the JAX package's device-array landing).
+
+    The host object store holds CPU bytes: a CUDA tensor is copied to the
+    host here, so a reader that sees no card (a worker pinned to no GPU)
+    gets it back, as a CPU tensor of the same dtype and shape. A CPU
+    tensor goes as a zero-copy numpy view of its storage (contiguous
+    ones; others are made contiguous first), so the put path's one copy
+    lands its bytes in the reserved segment. Tensors nested in a
+    container keep torch's own pickling.
+
+    Only consult torch if it is ALREADY imported: a value cannot be a
+    tensor otherwise, and lean workers boot without it. Another thread
+    may be importing it right now (a task's ``import torch`` while a
+    reply is serialized): until the module has ``Tensor``, no value is
+    one.
+    """
+    import sys
+    torch = sys.modules.get("torch")
+    tensor = getattr(torch, "Tensor", None)
+    if tensor is None or type(obj) is not tensor \
+            or obj.layout != torch.strided or obj.is_quantized:
+        return obj
+    t = obj.detach().cpu().resolve_conj().resolve_neg().contiguous()
+    dtype = str(t.dtype).rsplit(".", 1)[-1]
+    try:
+        array = t.numpy()
+    except TypeError:  # no numpy dtype: ship the bytes as same-size ints
+        array = t.view(getattr(torch, _INT_OF_SIZE[t.element_size()])
+                       ).numpy()
+    return _HostTensor(array, dtype, obj.requires_grad)
 
 
 class SerializedObject:
@@ -235,6 +307,7 @@ def serialize(obj: Any) -> SerializedObject:
         buffers.append(pb.raw())
         return False  # out-of-band
 
+    obj = _to_host(obj)
     meta = cloudpickle.dumps(obj, protocol=5, buffer_callback=_cb)
     return SerializedObject(meta, buffers)
 

@@ -411,7 +411,11 @@ class WorkerClient:
             # the segment from this thread's pool stripe and lands the
             # collected out-of-band views in place — the only copy of
             # the value's payload bytes on this whole path (the
-            # serialize() above only gathered views).
+            # serialize() above only gathered views). A torch tensor
+            # was brought to host inside serialize
+            # (serialization._to_host): a CPU tensor as a numpy view
+            # of its storage, so there is no host bounce buffer
+            # either; a CUDA tensor through one device-to-host copy.
             size = self._worker.store.put_serialized(oid, sobj)
             self._worker.send_lazy(P.OWNED_PUT,
                                    {"object_id": oid, "size": size,

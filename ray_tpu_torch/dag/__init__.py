@@ -7,9 +7,10 @@ function_node.py, class_node.py, input_node.py, output_node.py),
 executes the static graph repeatedly over mutable channels with no
 per-call scheduling.
 
-`compile_fused()` fuses a pure-function DAG into one callable; its
-compiled form (`jit=True`, one device program) is still to be ported and
-raises NotImplementedError.
+`compile_fused()` fuses a pure-function DAG into one callable and, with
+`jit=True` (the default), replays it on the card as one CUDA graph per
+input signature — the counterpart of the JAX package's one `jax.jit`
+program; inputs without a CUDA tensor run the nodes in order.
 
     with InputNode() as inp:
         x = preprocess.bind(inp)
@@ -74,8 +75,10 @@ class DAGNode:
         return CompiledDAG(self, buffer_size_bytes)
 
     def compile_fused(self, jit: bool = True):
-        """Fuse a pure-function DAG into one jittable callable — the
-        TPU-native compiled path (net-new vs the reference)."""
+        """Fuse a pure-function DAG into one callable — with ``jit=True``
+        one CUDA graph per input signature (``compiled.CudaGraphed``),
+        the counterpart of the JAX package's one jitted program (net-new
+        vs the reference)."""
         from .compiled import fuse_functions
         return fuse_functions(self, jit=jit)
 

@@ -10,9 +10,12 @@ submission, which is what removes the reference's per-task overhead
 than task-per-call).
 
 `fuse_functions` runs a PURE-function graph as one callable in one
-process; compiling it into one device program is still to be ported.
+process and, with ``jit=True``, replays it on the card as one CUDA graph
+per input signature (the counterpart of the JAX package's one
+``jax.jit`` program).
 """
 import threading
+import time
 from typing import Any, Dict, List, Optional, Tuple
 
 from . import (ClassMethodNode, DAGNode, FunctionNode, InputAttributeNode,
@@ -337,16 +340,13 @@ class CompiledDAG:
 def fuse_functions(root: DAGNode, jit: bool = True):
     """Fuse a pure-function DAG into one callable.
 
-    With ``jit=False`` the result runs the nodes' functions in order in
-    one process. ``jit=True`` (one compiled device program for the whole
-    DAG) raises NotImplementedError: its torch counterpart is ROADMAP.md
-    Queue 1 item 6.
+    ``jit=False`` runs the nodes' functions in order, in this process.
+    ``jit=True`` makes the whole DAG one device program, as ``jax.jit``
+    does in the JAX package: a ``CudaGraphed`` callable that captures
+    the DAG into one CUDA graph per input signature and replays it.
+    Inputs that hold no CUDA tensor run the nodes in order (eager torch
+    has no device program on the CPU).
     """
-    if jit:
-        raise NotImplementedError(
-            "fuse_functions(jit=True) compiles the DAG into one device "
-            "program, which ray_tpu_torch does not do yet (ROADMAP.md "
-            "Queue 1 item 6); pass jit=False for the unfused callable")
     topo = root._topo()
     for n in topo:
         if isinstance(n, ClassMethodNode):
@@ -374,4 +374,122 @@ def fuse_functions(root: DAGNode, jit: bool = True):
                 raise ValueError(f"Unsupported node {type(node).__name__}")
         return cache[id(root)]
 
-    return fused
+    return CudaGraphed(fused) if jit else fused
+
+
+def signature(leaves, spec):
+    """The graph-cache key of one call, from its flattened arguments
+    (``torch.utils._pytree.tree_flatten((args, kwargs))``): the tree
+    structure, each tensor leaf's shape, dtype and device, and the type
+    and value of every other leaf (which must be hashable, as a static
+    argument of ``jax.jit`` must)."""
+    import torch
+
+    return (spec, tuple(
+        (tuple(x.shape), x.dtype, x.device)
+        if isinstance(x, torch.Tensor) else (type(x), x) for x in leaves))
+
+
+class _Captured:
+    """One input signature's CUDA graph: the static input leaves it reads,
+    the outputs it writes, and the kernel launches it replays."""
+
+    __slots__ = ("graph", "inputs", "outputs", "launches")
+
+    def __init__(self, graph, inputs, outputs, launches):
+        self.graph, self.inputs = graph, inputs
+        self.outputs, self.launches = outputs, launches
+
+
+class CudaGraphed:
+    """A function of tensors run as CUDA graphs (``fuse_functions(jit=
+    True)``), the counterpart of ``jax.jit``: one graph per input
+    signature, as jit retraces per signature. The signature is the
+    pytree structure of the arguments, each tensor leaf's shape, dtype
+    and device, and the value of every other leaf.
+
+    First call of a signature: the arguments are copied into static
+    buffers, the function runs once on a side stream (warm-up: cuBLAS
+    handles, the kernels' libraries and attributes), then is captured
+    into a graph with a private memory pool. Every call copies its
+    tensors into the static buffers, replays the graph on the current
+    stream and returns clones of the outputs (JAX returns fresh arrays,
+    and the next replay overwrites the graph's own). The graph runs
+    without autograd. A function that syncs with the host under capture
+    (``.item()``, ``.cpu()``, a branch on a tensor's value) raises, as a
+    traced value does under ``jax.jit``; the call never falls back to
+    running eagerly. Replays add the port's kernel launches seen at
+    capture to ``ops._kernels.LAUNCHES`` (the capture itself launches
+    nothing).
+
+    Arguments with no CUDA tensor call the function as it is, eagerly.
+    """
+
+    def __init__(self, fn):
+        self.fn = fn
+        self.graphs: Dict[Any, _Captured] = {}
+        self.capture_s: Dict[Any, float] = {}
+        self._lock = threading.Lock()
+
+    def __call__(self, *args, **kwargs):
+        import torch
+        from torch.utils import _pytree
+
+        leaves, spec = _pytree.tree_flatten((args, kwargs))
+        tensors = [x for x in leaves if isinstance(x, torch.Tensor)]
+        if not any(t.is_cuda for t in tensors):
+            return self.fn(*args, **kwargs)
+        devices = {t.device for t in tensors}
+        if len(devices) != 1:
+            raise ValueError("a CUDA graph takes tensors on one CUDA "
+                             f"device; got {sorted(map(str, devices))}")
+        key = signature(leaves, spec)
+        with self._lock:
+            cap = self.graphs.get(key)
+            if cap is None:
+                t0 = time.perf_counter()
+                with torch.cuda.device(tensors[0].device):
+                    cap = self.graphs[key] = self._capture(leaves, spec)
+                self.capture_s[key] = time.perf_counter() - t0
+            for static, x in zip(cap.inputs, leaves):
+                if isinstance(x, torch.Tensor):
+                    static.copy_(x)
+            cap.graph.replay()
+            from ..ops import _kernels
+            for name, n in cap.launches.items():
+                _kernels.LAUNCHES[name] += n
+            return _pytree.tree_map(
+                lambda y: y.clone() if isinstance(y, torch.Tensor) else y,
+                cap.outputs)
+
+    def _capture(self, leaves, spec) -> _Captured:
+        import torch
+        from torch.utils import _pytree
+
+        from ..ops import _kernels
+
+        inputs = [x.detach().clone() if isinstance(x, torch.Tensor) else x
+                  for x in leaves]
+        args, kwargs = _pytree.tree_unflatten(inputs, spec)
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.no_grad():
+            with torch.cuda.stream(side):
+                self.fn(*args, **kwargs)
+            torch.cuda.current_stream().wait_stream(side)
+            graph = torch.cuda.CUDAGraph()
+            before = dict(_kernels.LAUNCHES)
+            try:
+                with torch.cuda.graph(graph):
+                    outputs = self.fn(*args, **kwargs)
+            except RuntimeError as e:
+                raise RuntimeError(
+                    "the fused DAG cannot be captured as a CUDA graph (a "
+                    "host sync such as .item() or .cpu(), or a branch on a "
+                    f"tensor's value, under capture?): {e}") from e
+            finally:  # the wrappers counted launches that only recorded
+                launches = {n: _kernels.LAUNCHES[n] - before.get(n, 0)
+                            for n in _kernels.LAUNCHES}
+                _kernels.LAUNCHES.update(before)
+        return _Captured(graph, inputs, outputs,
+                         {n: k for n, k in launches.items() if k})

@@ -1180,19 +1180,29 @@ class Dataset:
         for batch in self.iter_batches(batch_format="numpy", **kwargs):
             yield {k: convert(v) for k, v in batch.items()}
 
-    def iter_jax_batches(self, *, device=None, device_prefetch: int = 2,
-                         sharding=None, **kwargs):
-        """Device-resident batch iterator: not ported yet, raises
-        NotImplementedError (see ``streaming.jax_device_feed``)."""
-        from . import streaming
-        return streaming.jax_device_feed(
-            iter(()), device=device, sharding=sharding,
-            device_prefetch=device_prefetch)
-
-    def iter_torch_batches(self, **kwargs):
-        """(reference: dataset.py iter_torch_batches)"""
+    def iter_torch_batches(self, *, device=None, device_prefetch: int = 2,
+                           sharding=None, **kwargs):
+        """Batches as torch tensors (reference: dataset.py
+        iter_torch_batches). Without ``device`` or ``sharding``: host
+        tensors, converted per batch. With ``device`` (``"cuda"``, a
+        ``torch.device``): batches already ON that device, with
+        up to ``device_prefetch`` uploads issued ahead of the batch being
+        consumed (the counterpart of the JAX package's
+        ``iter_jax_batches``; a missing card raises RuntimeError). ``sharding`` (a DeviceMesh with a
+        ``dp`` axis) keeps this rank's rows of each batch on its own
+        device and needs ``drop_last=True``. See
+        ``streaming.torch_device_feed``."""
         import torch
-        return self._iter_framework_batches(torch.as_tensor, **kwargs)
+
+        from . import streaming
+        if device is None and sharding is None:
+            return self._iter_framework_batches(torch.as_tensor, **kwargs)
+        streaming._require_drop_last_for_sharding(sharding, kwargs)
+        kwargs.pop("batch_format", None)  # conversion fixes the format
+        return streaming.torch_device_feed(
+            self.iter_batches(batch_format="numpy", **kwargs),
+            device=device, sharding=sharding,
+            device_prefetch=device_prefetch)
 
     def iter_tf_batches(self, **kwargs):
         """(reference: dataset.py iter_tf_batches)"""

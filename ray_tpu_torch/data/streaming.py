@@ -5,7 +5,7 @@ Reference parity: _internal/iterator/stream_split_iterator.py
 pull-based operator topology itself lives in executor.py
 (StreamingExecutor); this module provides the consumption side — block
 resolution with prefetch, batch re-chunking, the streaming_split
-coordinator, and the (not yet ported) device feed.
+coordinator, and the torch device feed.
 """
 
 from __future__ import annotations
@@ -147,16 +147,121 @@ class _SplitCoordinator:
         return {"rows_given": list(self._rows_given)}
 
 
-def jax_device_feed(batches: Iterator, *, device=None, sharding=None,
-                    device_prefetch: int = 2) -> Iterator:
-    """The JAX device feed behind ``iter_jax_batches``. Its torch
-    counterpart (``iter_torch_batches`` with pinned host memory and
-    side-stream uploads) is ROADMAP.md Queue 1 item 4; until then every
-    entry to the device feed raises."""
-    raise NotImplementedError(
-        "the device feed (iter_jax_batches) is not ported to "
-        "ray_tpu_torch yet (ROADMAP.md Queue 1 item 4); use "
-        "iter_torch_batches or iter_batches")
+def torch_device_feed(batches: Iterator, *, device=None, sharding=None,
+                      device_prefetch: int = 2) -> Iterator:
+    """Shared device-upload window behind Dataset.iter_torch_batches and
+    DataIterator.iter_torch_batches (counterpart of the JAX package's
+    ``jax_device_feed``): yields batches of tensors already on the
+    device, with up to ``device_prefetch`` uploads in flight (0 = upload
+    in step with consumption, no device-side buffering).
+
+    ``device`` pins one device (None: the CUDA card; a missing card
+    raises RuntimeError here, never a move to the CPU). ``sharding`` is
+    a DeviceMesh (``parallel.make_mesh``) with a ``dp`` axis: axis 0 of
+    each batch is split over it, and this rank keeps rows
+    ``[c*B/N, (c+1)*B/N)`` for its coordinate c of N along ``dp`` (what
+    ``NamedSharding(mesh, PartitionSpec("dp"))`` puts on device c), on
+    its own device.
+
+    On a CUDA target each batch is copied into pinned host memory, then
+    to the card ``non_blocking`` on a side stream; the consumer's
+    current stream waits on that copy's event before the batch is
+    yielded, and each tensor is recorded on the consumer stream so the
+    caching allocator keeps its memory until the consumer's work on it
+    is done. A CPU target gets the host tensors as they are.
+    """
+    if device is not None and sharding is not None:
+        raise ValueError("pass device= OR sharding=, not both")
+    depth = int(device_prefetch)
+    if depth < 0:
+        raise ValueError("device_prefetch must be >= 0")
+    from .._device import resolve_device
+
+    if sharding is None:
+        target, coord, parts = resolve_device(device), 0, 1
+    else:
+        names = tuple(sharding.mesh_dim_names or ())
+        if "dp" not in names:
+            raise ValueError("sharding= takes a DeviceMesh with a 'dp' "
+                             f"axis, got axes {names}")
+        target = resolve_device(sharding.device_type)
+        coord = sharding.get_local_rank("dp")
+        parts = int(sharding.size(names.index("dp")))
+    return _device_feed(batches, target, coord, parts, depth)
+
+
+def _device_feed(batches: Iterator, target, coord: int, parts: int,
+                 depth: int) -> Iterator:
+    import numpy as np
+    import torch
+
+    def rows(value) -> np.ndarray:
+        a = np.asarray(value)
+        if parts == 1:
+            return a
+        if a.shape[0] % parts:
+            raise ValueError(
+                f"a batch of {a.shape[0]} rows does not split over the "
+                f"mesh's {parts} dp devices")
+        step = a.shape[0] // parts
+        return a[coord * step:(coord + 1) * step]
+
+    cuda = target.type == "cuda"
+    side = torch.cuda.Stream(target) if cuda else None
+
+    def pinned(a: np.ndarray) -> torch.Tensor:
+        # One host copy, store pages -> pinned memory, by numpy (the
+        # pages may be read-only, and torch never wraps them).
+        t = torch.empty(a.shape, pin_memory=True,
+                        dtype=torch.from_numpy(np.empty(0, a.dtype)).dtype)
+        t.numpy()[...] = a
+        return t
+
+    def host(a: np.ndarray) -> torch.Tensor:
+        # torch has no read-only tensor: read-only pages are copied.
+        return torch.from_numpy(a if a.flags.writeable else a.copy())
+
+    def upload(batch):
+        if not cuda:
+            return {k: host(rows(v)) for k, v in batch.items()}, None
+        with torch.cuda.stream(side):
+            put = {k: pinned(rows(v)).to(target, non_blocking=True)
+                   for k, v in batch.items()}
+            done = torch.cuda.Event()
+            done.record(side)
+        return put, done
+
+    def ready(item):
+        put, done = item
+        if done is not None:
+            consumer = torch.cuda.current_stream(target)
+            consumer.wait_event(done)
+            for t in put.values():
+                t.record_stream(consumer)
+        return put
+
+    window: collections.deque = collections.deque()
+    for batch in batches:
+        item = upload(batch)
+        if depth == 0:
+            yield ready(item)
+            continue
+        window.append(item)
+        if len(window) > depth:
+            yield ready(window.popleft())
+    while window:
+        yield ready(window.popleft())
+
+
+def _require_drop_last_for_sharding(sharding, kwargs: dict) -> None:
+    """A mesh sharding needs every batch divisible by the axis size;
+    the trailing partial batch generally is not — demand an explicit
+    drop_last=True instead of failing at epoch end."""
+    if sharding is not None and not kwargs.get("drop_last"):
+        raise ValueError(
+            "iter_torch_batches(sharding=...) requires drop_last=True: "
+            "the final partial batch is generally not divisible by the "
+            "mesh axis and its split would fail at epoch end")
 
 
 class DataIterator:
@@ -194,20 +299,23 @@ class DataIterator:
         for batch in self.iter_batches(batch_size=None):
             yield from B.block_to_rows(B.from_batch_format(batch))
 
-    def iter_torch_batches(self, **kwargs):
-        import torch
-        for batch in self.iter_batches(
-                batch_format="numpy",
-                **{k: v for k, v in kwargs.items()
-                   if k in ("batch_size", "drop_last")}):
-            yield {k: torch.as_tensor(v) for k, v in batch.items()}
-
-    def iter_jax_batches(self, *, device=None, device_prefetch: int = 2,
-                         sharding=None, **kwargs):
-        """Device-resident shard feed (not ported yet: raises, as
-        ``jax_device_feed`` does)."""
-        return jax_device_feed(iter(()), device=device, sharding=sharding,
-                               device_prefetch=device_prefetch)
+    def iter_torch_batches(self, *, device=None, device_prefetch: int = 2,
+                           sharding=None, **kwargs):
+        """This shard's batches as torch tensors. Without ``device`` or
+        ``sharding``: host tensors, converted per batch. With either: the
+        device feed for train workers (``torch_device_feed``, the
+        contract of Dataset.iter_torch_batches)."""
+        _require_drop_last_for_sharding(sharding, kwargs)
+        batches = self.iter_batches(
+            batch_format="numpy",
+            **{k: v for k, v in kwargs.items()
+               if k in ("batch_size", "drop_last", "prefetch_batches")})
+        if device is None and sharding is None:
+            import torch
+            return ({k: torch.as_tensor(v) for k, v in batch.items()}
+                    for batch in batches)
+        return torch_device_feed(batches, device=device, sharding=sharding,
+                                 device_prefetch=device_prefetch)
 
     def materialize(self):
         """Collect this shard into a list of blocks (mostly for tests)."""

@@ -557,3 +557,240 @@ class TestTrainDpPhase:
         # the band is no looser than train_vs_cpu's bf16 loss band
         bf16 = dict((d, t) for d, _, t in cs.VS_CPU_RUNS)["bfloat16"]
         assert cs.TOL_TRAIN_DP_LOSS <= bf16["loss"]
+
+
+class TestTrainFeedPhase:
+    """The pure-Python parts of the train_feed phase: the seeded data,
+    and the checks of the worker's report."""
+
+    def test_feed_data_is_seeded_and_shaped(self):
+        from ray_tpu_torch.models import ViTConfig
+
+        cfg = ViTConfig.tiny()
+        images, labels = cs.feed_data(cfg, 3, 4, 11)
+        again, again_labels = cs.feed_data(cfg, 3, 4, 11)
+        assert images.shape == (12, 32, 32, 3) and images.dtype == "float32"
+        assert labels.shape == (12,) and labels.dtype == "int64"
+        assert (images == again).all() and (labels == again_labels).all()
+        assert 0 <= labels.min() and labels.max() < cfg.num_classes
+        assert not (cs.feed_data(cfg, 3, 4, 12)[0] == images).all()
+
+    def test_vit_b16_dataset_size(self):
+        from ray_tpu_torch.models import ViTConfig
+
+        cfg = ViTConfig.vit_b16()
+        n = cs.FEED_BATCHES * cs.FEED_BATCH
+        assert (cs.FEED_BATCHES, cs.FEED_BATCH) == (6, 64)
+        # f32 224x224x3 images: about 231 MB in the store
+        assert round(n * cfg.image_size ** 2 * cfg.channels * 4 / 1e6) == 231
+
+    STEP = {"flash_fwd": 24, "flash_bwd_dq": 12, "flash_bwd_dkv": 12}
+    REFERENCE = [7.1, 7.0, 6.9, 6.8, 6.7, 6.6]
+
+    def _report(self, **changes):
+        report = {
+            "pid": 11, "cuda_visible_devices": "0", "device_count": 1,
+            "losses": list(self.REFERENCE),
+            "launches": {k: 5 * v for k, v in self.STEP.items()},
+            "arrived": [{"devices": ["cuda:0"], "equal": True}] * 6,
+            "traced_step": {"kernels": dict(self.STEP)},
+            "memory_stats": {"peak_bytes_in_use": 9},
+            "max_memory_allocated": 9}
+        report.update(changes)
+        return report
+
+    def test_report_accepted(self):
+        got = cs.train_feed_checks(self._report(), self.REFERENCE, 3, 5)
+        assert all(got["checks"].values()), got
+        assert got["expected_launches"] == {
+            "flash_fwd": 120, "flash_bwd_dq": 60, "flash_bwd_dkv": 60}
+
+    @pytest.mark.parametrize("change,failed", [
+        ({"pid": 3}, "other_process"),
+        ({"cuda_visible_devices": ""}, "pinned"),
+        ({"device_count": 0}, "pinned"),
+        ({"launches": {"flash_fwd": 24, "flash_bwd_dq": 12,
+                       "flash_bwd_dkv": 12}}, "launches"),
+        ({"arrived": [{"devices": ["cpu"], "equal": True}] * 6},
+         "arrived_on_card"),
+        ({"arrived": [{"devices": ["cuda:0"], "equal": True}] * 5
+          + [{"devices": ["cuda:0"], "equal": False}]}, "arrived_equal"),
+        ({"arrived": [{"devices": ["cuda:0"], "equal": True}] * 5},
+         "arrived_equal"),
+        ({"losses": [7.1, 7.0, 6.9, 6.8, 6.7, 6.6000001]}, "losses_equal"),
+        ({"losses": [7.1, 7.0, 6.9, 6.8, 6.7, float("nan")]},
+         "losses_equal"),
+        ({"traced_step": {"kernels": {"flash_fwd": 24, "flash_bwd_dq": 0,
+                                      "flash_bwd_dkv": 0}}},
+         "trace_names_kernels"),
+        ({"memory_stats": {}}, "memory_stats"),
+        ({"memory_stats": {"peak_bytes_in_use": 8}}, "memory_stats"),
+    ])
+    def test_report_rejected(self, change, failed):
+        got = cs.train_feed_checks(self._report(**change), self.REFERENCE,
+                                   3, 5)
+        assert not got["checks"][failed], got
+
+
+class TestDagFusedPhase:
+    """The pure-Python parts of the dag_fused phase: the slice's padding,
+    the greedy loop, and the checks of its rows."""
+
+    def test_left_pad_is_the_stages_padding(self):
+        import numpy as np
+
+        from ray_tpu_torch.llm import GPTInferenceStage, TokenizeStage
+        from ray_tpu_torch.models import GPTConfig
+
+        cfg = GPTConfig.tiny()
+        tokens = TokenizeStage(max_length=cfg.max_seq_len)(
+            {"prompt": cs._prompts(3, 20, 60)})["tokens"]
+        seen = []
+
+        class Spy(GPTInferenceStage):
+            def _decode(self, toks):
+                seen.append(toks.numpy().copy())
+                return torch.zeros((toks.shape[0], 1), dtype=torch.long)
+
+        Spy(config=cfg, max_new_tokens=1, device="cpu")({"tokens": tokens})
+        got = cs.left_pad(tokens, 64, cfg.vocab_size)
+        assert got.dtype == np.int64 and (got == seen[0]).all()
+        assert (cs.left_pad([[1, 2, 3]], 2, 10) == [[2, 3]]).all()
+
+    def test_greedy_run_slides_the_window(self):
+        calls = []
+
+        def step(toks):
+            calls.append(toks.clone())
+            return toks[:, -1] + 1
+
+        news = cs.greedy_run(step, torch.tensor([[0, 5], [1, 9]]), 3)
+        assert news.tolist() == [[6, 7, 8], [10, 11, 12]]
+        assert calls[-1].tolist() == [[6, 7], [10, 11]]
+
+    def test_greedy_dag_on_the_cpu_route(self):
+        from ray_tpu_torch.models import GPTConfig, gpt_forward, gpt_init
+
+        cfg = dataclasses.replace(GPTConfig.tiny(), dtype=torch.float32)
+        params = gpt_init(cfg, torch.Generator().manual_seed(0), "cpu")
+        dag = cs.greedy_dag(params, cfg)
+        tokens = torch.randint(0, cfg.vocab_size, (2, 16),
+                               generator=torch.Generator().manual_seed(1))
+        want = gpt_forward(params, tokens, cfg)[:, -1].argmax(-1)
+        fused = dag.compile_fused(jit=True)
+        assert torch.equal(fused(tokens), want) and fused.graphs == {}
+
+    def _rows(self):
+        step = {"flash_fwd": 12}
+        launches = {"flash_fwd": 96, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
+        return [
+            {"batch": 16, "seq": 1024, "steps": 8, "graphs": 1,
+             "per_replay_launches": dict(step), "profiled_k1": 12,
+             "empty_traces": 0,
+             "launches": dict(launches), "tokens_equal_eager_dag": True,
+             "tokens_equal_slice": True},
+            {"batch": 1, "seq": 128, "steps": 8, "graphs": 2,
+             "per_replay_launches": dict(step), "profiled_k1": 12,
+             "empty_traces": 1,
+             "launches": dict(launches), "tokens_equal_eager_dag": True}]
+
+    def test_rows_accepted(self):
+        assert cs.DAG_SIZES == [(16, 1024), (1, 128)]
+        assert cs.dag_checks(self._rows(), 12) == []
+
+    @pytest.mark.parametrize("row,change", [
+        (0, {"per_replay_launches": {}}),
+        (1, {"per_replay_launches": {"flash_fwd": 24}}),
+        (0, {"profiled_k1": 0}),
+        (1, {"launches": {"flash_fwd": 0, "flash_bwd_dq": 0,
+                          "flash_bwd_dkv": 0}}),
+        (0, {"launches": {"flash_fwd": 96, "flash_bwd_dq": 8,
+                          "flash_bwd_dkv": 0}}),
+        (0, {"tokens_equal_slice": False}),
+        (1, {"tokens_equal_eager_dag": False}),
+        (1, {"graphs": 1}),
+    ])
+    def test_rows_rejected(self, row, change):
+        rows = self._rows()
+        rows[row].update(change)
+        assert len(cs.dag_checks(rows, 12)) == 1
+
+    def test_profiler_count_failure_names_the_counts(self):
+        rows = self._rows()
+        rows[0].update(profiled_k1=0, empty_traces=3)
+        assert cs.dag_checks(rows, 12) == [
+            "16x1024: profiler K1 count 0, want 12 (3 empty traces)"]
+
+    def test_the_slices_bucket_must_run(self):
+        rows = self._rows()
+        del rows[0]["tokens_equal_slice"]
+        assert cs.dag_checks(rows, 12) == ["the slice's bucket was not run"]
+
+
+class TestTraceSummary:
+    """What the phases read from a torch.profiler Chrome trace."""
+
+    @pytest.mark.parametrize("intervals,want", [
+        ([], 0.0), ([(0, 2)], 2.0), ([(0, 2), (1, 3)], 3.0),
+        ([(0, 1), (2, 3)], 2.0), ([(2, 3), (0, 5)], 5.0),
+        ([(0, 4), (1, 2), (3, 6)], 6.0)])
+    def test_union_length(self, intervals, want):
+        assert cs.union_length(intervals) == want
+
+    def test_overlap_share(self):
+        assert cs.overlap_share([], [(0, 1)]) is None
+        assert cs.overlap_share([(0, 10)], []) == 0.0
+        assert cs.overlap_share([(0, 10)], [(2, 4), (3, 6), (9, 20)]) \
+            == pytest.approx(0.5)
+        assert cs.overlap_share([(0, 2), (4, 6)], [(1, 5)]) == 0.5
+
+    def test_trace_summary(self, tmp_path):
+        import json
+
+        def ev(cat, name, ts, dur, **args):
+            return {"ph": "X", "cat": cat, "name": name, "ts": ts,
+                    "dur": dur, "args": args}
+
+        events = [
+            ev("kernel", "void (anonymous namespace)::flash_fwd_bf16_kernel"
+               "<64>(CUtensorMap_st)", 0, 10),
+            ev("kernel", "flash_fwd_bf16_kernel<64>", 20, 10),
+            ev("kernel", "flash_bwd_dq_bf16_kernel<64>", 40, 10),
+            ev("kernel", "flash_bwd_dkv_bf16_kernel<64>", 60, 10),
+            ev("kernel", "ampere_bf16_gemm", 70, 30),
+            ev("gpu_memcpy", "Memcpy HtoD (Pinned -> Device)", 5, 20,
+               bytes=1000),
+            ev("gpu_memcpy", "Memcpy DtoH (Device -> Pageable)", 90, 5,
+               bytes=4),
+            ev("cpu_op", "aten::copy_", 0, 100)]
+        path = tmp_path / "t.pt.trace.json"
+        path.write_text(json.dumps({"traceEvents": events}))
+        assert cs.trace_file(str(tmp_path)) == str(path)
+        got = cs.trace_summary(str(path))
+        assert got["kernels"] == {"flash_fwd": 2, "flash_bwd_dq": 1,
+                                  "flash_bwd_dkv": 1}
+        assert got["htod_copies"] == 1 and got["htod_bytes"] == 1000
+        assert got["htod_ms"] == pytest.approx(0.02)
+        assert got["htod_overlap_share"] == pytest.approx(0.5)
+        assert got["kernel_busy_ms"] == pytest.approx(0.07)
+        assert got["device_events"] == 7
+
+    @pytest.mark.parametrize("device_events,runs,kept,empty", [
+        ([5], 1, 5, 0),
+        ([0, 0, 5], 3, 5, 2),
+        ([0, 3], 2, 3, 1),
+        ([0, 0, 0, 5], 3, 0, 3),
+    ])
+    def test_take_trace_retakes_only_empty_traces(
+            self, monkeypatch, tmp_path, device_events, runs, kept, empty):
+        takes, calls = iter(device_events), []
+
+        def summary(path):
+            assert path.endswith(".pt.trace.json")
+            return {"kernels": {}, "device_events": next(takes)}
+
+        monkeypatch.setattr(cs, "trace_summary", summary)
+        got = cs.take_trace(lambda: calls.append(1), dir=str(tmp_path))
+        assert cs.TRACE_TAKES == 3 and len(calls) == runs
+        assert got["device_events"] == kept and got["empty_traces"] == empty
+        assert os.listdir(tmp_path) == []

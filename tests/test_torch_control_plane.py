@@ -166,20 +166,29 @@ class TestRuntime:
             return 2 * x
 
         from ray_tpu_torch.dag import InputNode
+        from ray_tpu_torch.dag.compiled import CudaGraphed
 
         with InputNode() as inp:
             out = double.bind(double.bind(inp))
         assert out.compile_fused(jit=False)(3) == 12
-        with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-            out.compile_fused()
+        # jit=True: one CUDA graph per signature; without a CUDA tensor
+        # among the inputs the nodes run in order.
+        fused = out.compile_fused()
+        assert isinstance(fused, CudaGraphed)
+        assert fused(3) == 12 and fused.graphs == {}
 
     def test_device_feed_raises(self, cluster):
         from ray_tpu_torch import data
 
         ds = data.from_items([{"x": i} for i in range(4)])
         assert [r["x"] for r in ds.take_all()] == [0, 1, 2, 3]
-        with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-            ds.iter_jax_batches(batch_size=2)
+        # The feed runs on the card it is given: without one it raises,
+        # and never hands back host tensors in its place.
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            ds.iter_torch_batches(batch_size=2, device="cuda")
+        got = [b["x"] for b in ds.iter_torch_batches(batch_size=2,
+                                                     device="cpu")]
+        assert [t.tolist() for t in got] == [[0, 1], [2, 3]]
 
 
 def test_shutdown_leaves_no_directories():

@@ -423,6 +423,36 @@ class TestIsolation:
                 "ray_tpu_torch.models.resnet"} <= set(out)
         assert [m for m in out if _forbidden(m)] == []
 
+    def test_device_plumbing_import_leaves_jax_and_ray_tpu_out(self,
+                                                              tmp_path):
+        # The feed, the store's tensor landing, the fused DAG, profiling
+        # and the accelerator constants: none loads torch at import, and
+        # none reaches jax or ray_tpu once torch is used.
+        code = (
+            "import sys\n"
+            "import ray_tpu_torch.data.streaming, ray_tpu_torch.data\n"
+            "import ray_tpu_torch._private.serialization as ser\n"
+            "import ray_tpu_torch.dag.compiled\n"
+            "import ray_tpu_torch.util.profiling as prof\n"
+            "import ray_tpu_torch.util.accelerators as acc\n"
+            "print('torch' in sys.modules)\n"
+            "import torch\n"
+            "ser.deserialize(ser.serialize(torch.ones(3)).to_bytes())\n"
+            "list(ray_tpu_torch.data.streaming.torch_device_feed(\n"
+            "    iter([{'x': [1, 2]}]), device='cpu'))\n"
+            "with prof.trace(sys.argv[1]), prof.annotate('a'):\n"
+            "    torch.ones(2).sum()\n"
+            "assert acc.gpus_per_host(acc.NVIDIA_H100) == 8\n"
+            "print('\\n'.join(sys.modules))\n")
+        out = subprocess.run([sys.executable, "-c", code, str(tmp_path)],
+                             cwd=REPO, capture_output=True, text=True,
+                             timeout=120, check=True).stdout.split()
+        assert out[0] == "False"
+        assert {"ray_tpu_torch.data.streaming", "ray_tpu_torch.dag.compiled",
+                "ray_tpu_torch.util.profiling",
+                "ray_tpu_torch.util.accelerators", "torch"} <= set(out)
+        assert [m for m in out[1:] if _forbidden(m)] == []
+
     def test_control_plane_import_leaves_jax_and_ray_tpu_out(self):
         code = (
             "import sys\n"
