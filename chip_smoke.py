@@ -121,6 +121,28 @@ phase:
                     and the share overlapping a kernel); device_memory_stats
                     against torch's peak; a CUDA tensor the worker puts,
                     read back equal by the driver
+     parallel       the parallel strategies on 2 ranks sharing the card,
+                    each a process of one gloo world (parallel.launch.
+                    RankPool on cuda:0; NCCL takes one rank a GPU), at
+                    GPT-2 small's width: 3 steps each of the tp=2 and
+                    fsdp=2 train steps (B=8, S=1024, remat) against the
+                    tp=1 step in this process from the same weights
+                    (losses, and the params gathered to the JAX layout),
+                    Ulysses sp=2 with flash_attention at [16,12,1024,64]
+                    forward and backward against flash_attention on the
+                    whole tensors, ring attention sp=2 at [8,12,1024,64]
+                    against mha_reference, the expert-parallel moe_layer
+                    at MoEConfig()'s width (8192 tokens) forward and
+                    backward against the one-device layer on each rank's
+                    tokens, GPipe and 1F1B with 2 stages of 6 GPT-2
+                    blocks and 4 microbatches of 2 x 1024 against the 12
+                    blocks in sequence, and dryrun_multichip(2); K1-K3
+                    counted in each rank's process against the per-rank
+                    expectation, each collective's calls, bytes a step
+                    (the tp and fsdp bytes against their reckoning from
+                    the shapes) and transport (gloo, or gloo host-staged
+                    for the point-to-point hops), and each path's ms
+                    beside its tp=1 or one-device counterpart
  13. train_vs_cpu   one step at GPT-2-small width and 2 layers, card vs
                     CPU from the same weights: loss, every gradient, every
                     param after AdamW (f32 at T=128, bf16 at ragged T=100)
@@ -2629,6 +2651,671 @@ def phase_resnet():
     torch.cuda.empty_cache()
 
 
+
+# The parallel phase: 2 ranks sharing the card, each a process of one gloo
+# world (parallel.launch.RankPool(device="cuda"); NCCL takes one rank a
+# GPU), GPT-2 small at full width (bf16, remat on).
+PAR_RANKS, PAR_STEPS, PAR_BATCH, PAR_SEQ = 2, 3, 8, 1024
+PAR_ULYSSES_SHAPE, PAR_RING_SHAPE = (16, 12, 1024, 64), (8, 12, 1024, 64)
+PAR_PP_STAGES, PAR_PP_MICRO, PAR_PP_MB = 2, 4, 2
+# Deadline of one call to the ranks (a rank stuck in a collective fails
+# the phase there).
+PAR_TIMEOUT = 300
+# tp=2 and fsdp=2 against the tp=1 step from the same weights, bf16.
+# The loss, relative: tests/test_torch_train.py holds the bf16 step to
+# JAX at 2e-3; here train_dp's 1e-2, since tp rounds each partial product
+# to bf16 before the all-reduce sums it (and fsdp each rank's gradient
+# before the reduce-scatter). The params after PAR_STEPS steps, per leaf
+# |p - ref| over |ref - p0| (2-norms; p0 the start): the share of the
+# steps' own move on which the layouts disagree. test_torch_train.py
+# holds bf16 params at 2e-2 of each leaf's max |p| at the tiny width; at
+# GPT-2's width that measure is dominated by the few elements whose bf16
+# gradient is near zero, which AdamW moves by about lr either way
+# whatever the gradient's size: 2 lr over 3 steps is 4.9e-2 of wo's and
+# w2's max |p| (0.037). It is reported beside, not held.
+TOL_PAR_LOSS, TOL_PAR_PARAMS = 1e-2, 0.25
+# The first step's gradients, reduced and before AdamW reads them,
+# gathered to the JAX layout, against the tp=1 step's, over each leaf's
+# max: the bf16 grads band of train_vs_cpu. AdamW's artefact above does
+# not reach them, and a gradient off by a factor (summed twice, a dropped
+# sum) or in another column order is off by its whole size: the phase
+# reads such faults through the same band and requires that each fails.
+TOL_PAR_GRADS = VS_CPU_RUNS[1][2]["grads"]
+# The pipelines' bf16 grads against the 12 blocks in sequence, over each
+# leaf's max: the bf16 grads band of train_vs_cpu (the microbatches'
+# weight gradients are summed in bf16, a rounding the whole batch's one
+# product does not have).
+TOL_PAR_PP_GRADS = VS_CPU_RUNS[1][2]["grads"]
+# Expert-parallel moe_layer against the one-device layer on each rank's
+# tokens, over each tensor's max: y and the grads of the bf16 tokens and
+# experts are bf16, a few ulps of it (2**-8 = 3.9e-3) apart where the
+# experts' f32 einsums, run on [E/n, n*C] buffers instead of [E, C], sum
+# in another order (the router's f32 grad is held to the same band).
+TOL_PAR_MOE = 1e-2
+
+
+def parallel_expected_launches(path: str, n_layers: int = 12,
+                               steps: int = PAR_STEPS) -> dict:
+    """K1, K2, K3 launches in each rank's process on a parallel path:
+    ``tp``/``fsdp``: ``steps`` GPT steps with remat, every layer's
+    attention on each rank (tp on half the heads, fsdp on half the rows);
+    ``ulysses``: one flash_attention forward and backward on each rank's
+    heads; ``gpipe``: each of PAR_PP_MICRO microbatches through the
+    rank's n_layers / 2 blocks, forward and backward (no remat); ``1f1b``:
+    the same, each stage's forward run twice (in the schedule, then
+    recomputed for its backward)."""
+    if path in ("tp", "fsdp"):
+        return {n: k * steps for n, k in
+                expected_launches(n_layers, True).items()}
+    if path == "ulysses":
+        return {"flash_fwd": 1, "flash_bwd_dq": 1, "flash_bwd_dkv": 1}
+    per_stage = n_layers // PAR_PP_STAGES * PAR_PP_MICRO
+    fwd = per_stage * (2 if path == "1f1b" else 1)
+    return {"flash_fwd": fwd, "flash_bwd_dq": per_stage,
+            "flash_bwd_dkv": per_stage}
+
+
+def tp_all_reduce_bytes(cfg, b: int, s: int, chunk: int = 4096) -> int:
+    """Bytes one rank hands to all-reduce in one tensor-parallel GPT step:
+    per layer the two "g" sums of the forward, with remat the attention's
+    again in the recompute (torch's checkpoint stops recomputing once the
+    backward has what it saved, which the MLP's closing sum is not), and
+    the two "f" gradient sums of the backward, each a [b, s, d]
+    activation in the model dtype; the embedding's sum, the final norm's
+    gradient sum, and per loss chunk (gpt_loss's: the largest power of
+    two up to ``chunk`` dividing the rows) the f32 row max and the
+    stacked [2, chunk] sums."""
+    import torch
+
+    act = b * s * cfg.d_model * torch.empty(0, dtype=cfg.dtype).element_size()
+    rows = b * s
+    while chunk > 1 and rows % chunk:
+        chunk //= 2
+    per_layer = 5 if cfg.remat else 4
+    return (per_layer * cfg.n_layers + 2) * act \
+        + rows // chunk * 3 * chunk * 4
+
+
+def fsdp_bytes(params_bytes: int, world: int) -> dict:
+    """Bytes one rank hands to each collective in one fsdp step over the
+    whole world: its blocks to the all-gather, the whole gradients to the
+    reduce-scatter, the f32 loss to the all-reduce."""
+    return {"all_gather": params_bytes // world,
+            "reduce_scatter": params_bytes, "all_reduce": 4}
+
+
+def per_step(traffic: dict, steps: int) -> dict:
+    """TRAFFIC's snapshot as calls and bytes a step, with transports."""
+    return {op: {"calls_per_step": r["calls"] / steps,
+                 "bytes_per_step": r["bytes"] / steps,
+                 "transports": r["transports"]}
+            for op, r in traffic.items()}
+
+
+def transports(ranks: list) -> dict:
+    """op -> the transports any rank used for it, over every path."""
+    out: dict = {}
+    for rank in ranks:
+        for traffic in rank.values():
+            for op, r in traffic.items():
+                out.setdefault(op, set()).update(r["transports"])
+    return {op: sorted(t) for op, t in sorted(out.items())}
+
+
+def _leaf_errs(ours, ref) -> list:
+    """Per leaf, in tree_leaves order: max |ours - ref| / max |ref|, f32."""
+    from ray_tpu_torch.models.convert import tree_leaves
+
+    return [float((a.float() - b.float()).abs().max()
+                  / b.float().abs().max().clamp_min(1e-30))
+            for a, b in zip(tree_leaves(ours), tree_leaves(ref))]
+
+
+def first_grads_optimizer(store: list):
+    """The default optimizer, putting the gradients its first step reads
+    (the step's reduced ones, in the params' order) into ``store``."""
+    from ray_tpu_torch.models._training import default_optimizer
+
+    def make(params):
+        opt = default_optimizer(params)
+
+        def keep(_opt, _args, _kwargs):
+            if not store:
+                store.extend(p.grad.detach().clone() for p in params)
+        opt.register_step_pre_hook(keep)
+        return opt
+    return make
+
+
+def contiguous_wqkv(w, n: int):
+    """A JAX-layout wqkv ([d, 3d], columns [q | k | v]) with its columns
+    in the order of n head-aligned blocks put side by side: rank r's
+    [q_r | k_r | v_r], then rank r + 1's. A gather that concatenated the
+    tp blocks would give this."""
+    import torch
+
+    width = w.shape[-1] // 3
+    parts = [x.chunk(n, dim=-1) for x in w.split(width, dim=-1)]
+    return torch.cat([p[r] for r in range(n) for p in parts], dim=-1)
+
+
+def par_reference(path: str, b: int, s: int, steps: int) -> dict:
+    """The tp=1 GPT-2-small step in this process on the card, from the
+    seed-0 weights: losses, step seconds, and the params and the first
+    step's gradients saved to ``path`` (CPU tensors) for the ranks to
+    compare with."""
+    import torch
+
+    from ray_tpu_torch._tree import tree_map, tree_unflatten
+    from ray_tpu_torch.models import GPTConfig, make_train_step
+
+    cfg = GPTConfig.gpt2_small()
+    grads: list = []
+    init_state, train_step = make_train_step(
+        cfg, optimizer=first_grads_optimizer(grads))
+    state = init_state(torch.Generator(device="cuda").manual_seed(0))
+    batch = token_batch(cfg.vocab_size, b, s)
+    losses, steps_s = [], []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        state, m = train_step(state, batch)
+        losses.append(float(m["loss"]))
+        steps_s.append(time.perf_counter() - t0)
+    def to_cpu(tree):
+        return tree_map(lambda t, _: t.detach().cpu(), tree)
+    torch.save({"params": to_cpu(state["params"]),
+                "grads": to_cpu(tree_unflatten(state["params"], grads))},
+               path)
+    del state, grads
+    torch.cuda.empty_cache()
+    return {"losses": losses, "step_ms": [t * 1e3 for t in steps_s]}
+
+
+def par_train_rank(kind: str, ref_path: str, b: int, s: int,
+                   steps: int) -> dict:
+    """One rank of the tp=2 or fsdp=2 GPT-2-small step: ``steps`` steps
+    from the seed-0 weights on this rank's part of the seed-0 batch, the
+    launches and collectives counted over exactly them; then the params
+    and the first step's gradients gathered to the JAX layout, compared
+    on rank 0 with the tp=1 step's. The gradients' controls, which the
+    band must reject: them doubled, tp's wqkv in a contiguous-block
+    order, and (tp) one step from the same weights with every "f"
+    gradient sum dropped."""
+    import torch
+    import torch.distributed as dist
+
+    from ray_tpu_torch._tree import tree_leaves, tree_unflatten
+    from ray_tpu_torch.models import GPTConfig, make_train_step, shard_batch
+    from ray_tpu_torch.models import gpt
+    from ray_tpu_torch.models.gpt import gather_gpt_params
+    from ray_tpu_torch.ops import _kernels
+    from ray_tpu_torch.parallel import (MeshConfig, fsdp_rules, make_mesh,
+                                        ops, tp_rules)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = GPTConfig.gpt2_small()
+    world = dist.get_world_size()
+    mesh = make_mesh(MeshConfig(dp=1, **{kind: world}), device_type="cuda")
+    rules = tp_rules() if kind == "tp" else fsdp_rules()
+    grads: list = []
+    init_state, train_step = make_train_step(
+        cfg, optimizer=first_grads_optimizer(grads), mesh=mesh, rules=rules)
+    state = init_state(torch.Generator(device="cuda").manual_seed(0))
+    batch = shard_batch(token_batch(cfg.vocab_size, b, s), mesh)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    ops.TRAFFIC.reset()
+    losses, steps_s = [], []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        state, m = train_step(state, batch)
+        losses.append(float(m["loss"]))  # the fetch ends the step
+        steps_s.append(time.perf_counter() - t0)
+    launches = dict(_kernels.LAUNCHES)
+    traffic = ops.TRAFFIC.snapshot()
+    leaves = tree_leaves(state["params"])
+    opt = state["opt_state"]
+    row = {"pid": os.getpid(), "rank": dist.get_rank(),
+           "launches": launches, "traffic": traffic, "losses": losses,
+           "step_ms": [t * 1e3 for t in steps_s],
+           "block_bytes": sum(p.numel() * p.element_size() for p in leaves),
+           "moments_sharded": all(
+               opt.state[p]["exp_avg"].shape == p.shape for p in leaves),
+           "wqkv_block": list(state["params"]["layers"][0]["wqkv"].shape),
+           "w1_block": list(state["params"]["layers"][0]["w1"].shape),
+           "max_memory_allocated_gb":
+               torch.cuda.max_memory_allocated() / 1e9}
+    full = gather_gpt_params(state["params"], cfg, mesh, rules)
+    full_grads = gather_gpt_params(tree_unflatten(state["params"], grads),
+                                   cfg, mesh, rules)
+    row["params_bytes"] = sum(p.numel() * p.element_size()
+                              for p in tree_leaves(full))
+    dropped = None
+    if kind == "tp":
+        del state, grads
+        control: list = []
+        init_c, step_c = make_train_step(
+            cfg, optimizer=first_grads_optimizer(control), mesh=mesh,
+            rules=rules)
+        state = init_c(torch.Generator(device="cuda").manual_seed(0))
+        kept = gpt.grad_allreduce
+        gpt.grad_allreduce = lambda x, axis_name: x
+        try:
+            step_c(state, batch)
+        finally:
+            gpt.grad_allreduce = kept
+        dropped = gather_gpt_params(tree_unflatten(state["params"], control),
+                                    cfg, mesh, rules)
+    if dist.get_rank() == 0:
+        from ray_tpu_torch.models import gpt_init
+
+        saved = torch.load(ref_path, map_location="cuda")
+        ref, ref_grads = saved["params"], saved["grads"]
+        start = gpt_init(cfg, torch.Generator(device="cuda").manual_seed(0),
+                         "cuda")
+        row["param_errs"] = _leaf_errs(full, ref)
+        row["param_move_errs"] = [
+            float((a.float() - b.float()).norm()
+                  / (b.float() - c.float()).norm().clamp_min(1e-30))
+            for a, b, c in zip(tree_leaves(full), tree_leaves(ref),
+                               tree_leaves(start))]
+        row["grad_errs"] = _leaf_errs(full_grads, ref_grads)
+        controls = {"doubled": max(_leaf_errs(
+            [2 * g for g in tree_leaves(full_grads)], ref_grads))}
+        if kind == "tp":
+            controls["wqkv_contiguous_blocks"] = max(_leaf_errs(
+                [contiguous_wqkv(lay["wqkv"], world)
+                 for lay in full_grads["layers"]],
+                [lay["wqkv"] for lay in ref_grads["layers"]]))
+            controls["f_sums_dropped"] = max(_leaf_errs(dropped, ref_grads))
+        row["grad_control_errs"] = controls
+    return row
+
+
+def par_ulysses_rank(shape) -> dict:
+    """Ulysses sp=2 with attn_fn=flash_attention on the seeded bf16 q, k,
+    v: forward and backward of sum(out * w), launches and collectives
+    counted over exactly it; then flash_attention on the whole tensors on
+    this rank, against which out and the grads are compared."""
+    import torch
+
+    from ray_tpu_torch.ops import _kernels
+    from ray_tpu_torch.ops.attention import flash_attention
+    from ray_tpu_torch.parallel import make_1d_mesh, ops
+    from ray_tpu_torch.parallel.partition import PartitionSpec as P
+    from ray_tpu_torch.parallel.sequence import ulysses_attention
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = torch.Generator(device="cuda").manual_seed(21)
+    q, k, v, w = (torch.randn(shape, generator=g, device="cuda",
+                              dtype=torch.bfloat16) for _ in range(4))
+    mesh = make_1d_mesh("sp", device_type="cuda")
+    spec = P(None, None, "sp", None)
+    fn = ops.shard_map(
+        lambda a, b, c: ulysses_attention(a, b, c, "sp",
+                                          attn_fn=flash_attention),
+        mesh=mesh, in_specs=(spec,) * 3, out_specs=spec)
+
+    def run(attn):
+        xs = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = attn(*xs)
+        (out.float() * w.float()).sum().backward()
+        torch.cuda.synchronize()
+        return out.detach(), [x.grad for x in xs], time.perf_counter() - t0
+
+    run(fn)  # warm-up
+    reset_launches()
+    ops.TRAFFIC.reset()
+    out, grads, secs = run(fn)
+    launches = dict(_kernels.LAUNCHES)
+    traffic = ops.TRAFFIC.snapshot()
+    run(lambda a, b, c: flash_attention(a, b, c, True))  # warm-up
+    ref, ref_grads, ref_secs = run(
+        lambda a, b, c: flash_attention(a, b, c, True))
+    return {"pid": os.getpid(), "launches": launches, "traffic": traffic,
+            "ms": secs * 1e3, "one_device_ms": ref_secs * 1e3,
+            "out_err": _norm_err(out, ref),
+            "grad_errs": [_norm_err(a, b) for a, b in zip(grads, ref_grads)],
+            "bit_identical": bool(torch.equal(out, ref)) and all(
+                torch.equal(a, b) for a, b in zip(grads, ref_grads))}
+
+
+def par_ring_rank(shape) -> dict:
+    """Ring attention sp=2 (sequence_parallel_attention, forward) on the
+    seeded bf16 q, k, v, against mha_reference on the whole tensors."""
+    import torch
+
+    from ray_tpu_torch.ops.attention import mha_reference
+    from ray_tpu_torch.parallel import make_1d_mesh, ops
+    from ray_tpu_torch.parallel.sequence import sequence_parallel_attention
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = torch.Generator(device="cuda").manual_seed(22)
+    q, k, v = (torch.randn(shape, generator=g, device="cuda",
+                           dtype=torch.bfloat16) for _ in range(3))
+    mesh = make_1d_mesh("sp", device_type="cuda")
+    with torch.no_grad():
+        sequence_parallel_attention(mesh, q, k, v)  # warm-up
+        ops.TRAFFIC.reset()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = sequence_parallel_attention(mesh, q, k, v)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        traffic = ops.TRAFFIC.snapshot()
+        t0 = time.perf_counter()
+        ref = mha_reference(q, k, v, True)
+        torch.cuda.synchronize()
+        ref_secs = time.perf_counter() - t0
+    return {"traffic": traffic, "ms": secs * 1e3,
+            "one_device_ms": ref_secs * 1e3, "out_err": _norm_err(out, ref)}
+
+
+def par_moe_rank() -> dict:
+    """moe_layer(axis_name="ep") at MoEConfig()'s width (8192 tokens, d
+    512, 8 experts, 4 a rank, bf16 tokens and experts, f32 router) under
+    shard_map, forward and backward of sum(y * w) + aux; against the
+    one-device moe_layer on each rank's tokens in turn (the same
+    per-shard capacity), the grads summed over the shards."""
+    import torch
+    import torch.distributed as dist
+
+    from ray_tpu_torch.models import MoEConfig
+    from ray_tpu_torch.parallel import make_1d_mesh, ops
+    from ray_tpu_torch.parallel.moe import moe_layer
+    from ray_tpu_torch.parallel.partition import PartitionSpec as P
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = MoEConfig()
+    t, d, e, f = MOE_SHAPE[0] * MOE_SHAPE[2], cfg.d_model, cfg.n_experts, \
+        cfg.d_ff
+    g = torch.Generator(device="cuda").manual_seed(23)
+
+    def draw(shape, scale, dtype):
+        return (torch.randn(shape, generator=g, device="cuda") * scale
+                ).to(dtype)
+
+    x = draw((t, d), 1.0, torch.bfloat16)
+    gate = draw((d, e), d ** -0.5, torch.float32)
+    w1 = draw((e, d, f), d ** -0.5, torch.bfloat16)
+    w2 = draw((e, f, d), d ** -0.5, torch.bfloat16)
+    w = draw((t, d), 1.0, torch.float32)
+    n = dist.get_world_size()
+    mesh = make_1d_mesh("ep", device_type="cuda")
+    fn = ops.shard_map(
+        lambda a, b, c, dd: moe_layer(a, b, c, dd, cfg.capacity_factor,
+                                      axis_name="ep"),
+        mesh=mesh, in_specs=(P("ep"), P(), P("ep"), P("ep")),
+        out_specs=(P("ep"), P()))
+
+    def run(layer):
+        xs = [p.clone().requires_grad_(True) for p in (x, gate, w1, w2)]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        y, aux = layer(*xs)
+        ((y.float() * w).sum() + aux).backward()
+        torch.cuda.synchronize()
+        return y.detach(), float(aux.detach()), [p.grad for p in xs], \
+            time.perf_counter() - t0
+
+    def one_device(a, b, c, dd):
+        parts = [moe_layer(part, b, c, dd, cfg.capacity_factor)
+                 for part in a.chunk(n)]
+        return (torch.cat([y for y, _ in parts]),
+                torch.stack([aux for _, aux in parts]).mean())
+
+    run(fn)  # warm-up
+    ops.TRAFFIC.reset()
+    y, aux, grads, secs = run(fn)
+    traffic = ops.TRAFFIC.snapshot()
+    run(one_device)
+    ref, ref_aux, ref_grads, ref_secs = run(one_device)
+    return {"traffic": traffic, "ms": secs * 1e3,
+            "one_device_ms": ref_secs * 1e3, "tokens": t,
+            "y_err": _norm_err(y, ref), "aux": aux, "ref_aux": ref_aux,
+            "grad_errs": [_norm_err(a, b) for a, b in zip(grads,
+                                                          ref_grads)]}
+
+
+def par_pp_rank(kind: str) -> dict:
+    """GPipe (``kind="gpipe"``) or 1F1B training of GPT-2 small's 12
+    blocks as PAR_PP_STAGES stages over ``pp``, PAR_PP_MICRO microbatches
+    of PAR_PP_MB x PAR_SEQ (seeded bf16 activations, f32 targets, mean
+    squared error), launches and collectives counted over exactly the
+    step; then the 12 blocks in sequence on this rank, whose grads the
+    pipeline's are compared with."""
+    import torch
+
+    from ray_tpu_torch.models import GPTConfig, gpt_init
+    from ray_tpu_torch.models.convert import tree_leaves
+    from ray_tpu_torch.models.gpt import _block
+    from ray_tpu_torch.ops import _kernels
+    from ray_tpu_torch.parallel import make_1d_mesh, ops
+    from ray_tpu_torch.parallel.pipeline import (make_1f1b_train_fn,
+                                                 make_pipelined_train_fn)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(GPTConfig.gpt2_small(), remat=False)
+    layers = gpt_init(cfg, torch.Generator(device="cuda").manual_seed(0),
+                      "cuda")["layers"]
+    per = cfg.n_layers // PAR_PP_STAGES
+    stacked = {"layers": [
+        {key: torch.stack([layers[s * per + j][key]
+                           for s in range(PAR_PP_STAGES)])
+         for key in layers[0]} for j in range(per)]}
+    g = torch.Generator(device="cuda").manual_seed(24)
+    rows = PAR_PP_MICRO * PAR_PP_MB
+    x = torch.randn((rows, PAR_SEQ, cfg.d_model), generator=g,
+                    device="cuda").to(cfg.dtype)
+    y = torch.randn((rows, PAR_SEQ, cfg.d_model), generator=g,
+                    device="cuda")
+
+    def stage(params, a):
+        for layer in params["layers"]:
+            a = _block(a, layer, cfg)
+        return a
+
+    def loss_fn(out, target):
+        return ((out.float() - target) ** 2).mean()
+
+    mesh = make_1d_mesh("pp", device_type="cuda")
+    make = make_1f1b_train_fn if kind == "1f1b" else make_pipelined_train_fn
+    step = make(mesh, stage, loss_fn, PAR_PP_MICRO)
+    step(stacked, x, y)  # warm-up
+    torch.cuda.synchronize()
+    reset_launches()
+    ops.TRAFFIC.reset()
+    t0 = time.perf_counter()
+    loss, grads = step(stacked, x, y)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = dict(_kernels.LAUNCHES)
+    traffic = ops.TRAFFIC.snapshot()
+
+    def sequential():
+        seq = [{k: v.detach().requires_grad_(True) for k, v in lay.items()}
+               for lay in layers]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        a = x
+        for lay in seq:
+            a = _block(a, lay, cfg)
+        ref_loss = loss_fn(a, y)
+        ref_loss.backward()
+        torch.cuda.synchronize()
+        return seq, float(ref_loss), time.perf_counter() - t0
+
+    sequential()  # warm-up
+    seq, ref_loss, ref_secs = sequential()
+    ref = {"layers": [
+        {key: torch.stack([seq[s * per + j][key].grad
+                           for s in range(PAR_PP_STAGES)])
+         for key in layers[0]} for j in range(per)]}
+    return {"pid": os.getpid(), "launches": launches, "traffic": traffic,
+            "ms": secs * 1e3, "one_device_ms": ref_secs * 1e3,
+            "loss": float(loss), "ref_loss": ref_loss,
+            "grad_errs": _leaf_errs(grads, ref),
+            "leaves": len(tree_leaves(grads))}
+
+
+def parallel_checks(rows: dict, ref_losses: list, driver_pid: int
+                    ) -> dict:
+    """Every check of the parallel phase by name, from its rows."""
+    from ray_tpu_torch.models import GPTConfig
+
+    checks = {}
+    for kind in ("tp", "fsdp"):
+        ranks = rows[kind]
+        want = parallel_expected_launches(kind)
+        errs = [abs(a - b) / abs(b)
+                for a, b in zip(ranks[0]["losses"], ref_losses)]
+        checks[f"{kind}_launches"] = all(r["launches"] == want
+                                         for r in ranks)
+        checks[f"{kind}_other_processes"] = len(
+            {r["pid"] for r in ranks} | {driver_pid}) == len(ranks) + 1
+        checks[f"{kind}_ranks_agree"] = all(
+            r["losses"] == ranks[0]["losses"] for r in ranks)
+        checks[f"{kind}_losses"] = len(errs) == PAR_STEPS and all(
+            math.isfinite(x) for x in ranks[0]["losses"]) \
+            and max(errs) <= TOL_PAR_LOSS
+        checks[f"{kind}_params"] = max(ranks[0]["param_move_errs"]) \
+            <= TOL_PAR_PARAMS
+        checks[f"{kind}_grads"] = max(ranks[0]["grad_errs"]) \
+            <= TOL_PAR_GRADS
+        controls = ranks[0]["grad_control_errs"]
+        checks[f"{kind}_grad_controls_rejected"] = set(controls) == (
+            {"doubled", "wqkv_contiguous_blocks", "f_sums_dropped"}
+            if kind == "tp" else {"doubled"}) and all(
+            err > TOL_PAR_GRADS for err in controls.values())
+        checks[f"{kind}_moments_sharded"] = all(r["moments_sharded"]
+                                                for r in ranks)
+    checks["tp_bytes"] = all(
+        r["traffic"]["all_reduce"]["bytes"] == PAR_STEPS
+        * tp_all_reduce_bytes(GPTConfig.gpt2_small(), PAR_BATCH, PAR_SEQ)
+        for r in rows["tp"])
+    fsdp = rows["fsdp"][0]
+    want = fsdp_bytes(fsdp["params_bytes"], PAR_RANKS)
+    checks["fsdp_bytes"] = all(
+        {op: r["traffic"][op]["bytes"] for op in want}
+        == {op: n * PAR_STEPS for op, n in want.items()}
+        for r in rows["fsdp"])
+    uly = rows["ulysses"]
+    checks["ulysses_launches"] = all(
+        r["launches"] == parallel_expected_launches("ulysses") for r in uly)
+    checks["ulysses_out"] = all(r["out_err"] <= TOL_BF16_NORM for r in uly)
+    checks["ulysses_grads"] = all(max(r["grad_errs"]) <= TOL_BWD_BF16_NORM
+                                  for r in uly)
+    checks["ring_out"] = all(r["out_err"] <= TOL_BF16_NORM
+                             for r in rows["ring"])
+    moe = rows["moe"]
+    checks["moe_y"] = all(r["y_err"] <= TOL_PAR_MOE for r in moe)
+    checks["moe_aux"] = all(abs(r["aux"] - r["ref_aux"])
+                            <= 1e-5 * abs(r["ref_aux"]) for r in moe)
+    checks["moe_grads"] = all(max(r["grad_errs"]) <= TOL_PAR_MOE
+                              for r in moe)
+    for kind in ("gpipe", "1f1b"):
+        ranks = rows[kind]
+        checks[f"{kind}_launches"] = all(
+            r["launches"] == parallel_expected_launches(kind)
+            for r in ranks)
+        checks[f"{kind}_grads"] = all(
+            max(r["grad_errs"]) <= TOL_PAR_PP_GRADS for r in ranks)
+        checks[f"{kind}_loss"] = all(
+            abs(r["loss"] - r["ref_loss"]) <= TOL_PAR_LOSS * r["ref_loss"]
+            for r in ranks)
+    return checks
+
+
+def phase_parallel() -> dict:
+    """The parallel strategies on 2 ranks sharing the card (see the module
+    docstring); returns each path's launches summed over the ranks."""
+    import tempfile
+
+    import torch
+
+    import chip_smoke
+    from ray_tpu_torch.parallel.dryrun import dryrun_multichip
+    from ray_tpu_torch.parallel.launch import RankPool
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    rows: dict = {}
+    ref_dir = tempfile.mkdtemp(prefix="rtt_parallel_")
+    ref_path = os.path.join(ref_dir, "tp1_params.pt")
+    try:
+        ref = par_reference(ref_path, PAR_BATCH, PAR_SEQ, PAR_STEPS)
+        with RankPool(PAR_RANKS, "cuda", timeout=PAR_TIMEOUT) as pool:
+            for kind in ("tp", "fsdp"):
+                rows[kind] = pool.run(chip_smoke.par_train_rank, kind,
+                                      ref_path, PAR_BATCH, PAR_SEQ,
+                                      PAR_STEPS)
+            rows["ulysses"] = pool.run(chip_smoke.par_ulysses_rank,
+                                       PAR_ULYSSES_SHAPE)
+            rows["ring"] = pool.run(chip_smoke.par_ring_rank,
+                                    PAR_RING_SHAPE)
+            rows["moe"] = pool.run(chip_smoke.par_moe_rank)
+            for kind in ("gpipe", "1f1b"):
+                rows[kind] = pool.run(chip_smoke.par_pp_rank, kind)
+    finally:
+        for name in os.listdir(ref_dir):
+            os.remove(os.path.join(ref_dir, name))
+        os.rmdir(ref_dir)
+    t0 = time.perf_counter()
+    dryrun = dryrun_multichip(PAR_RANKS)
+    dryrun_s = time.perf_counter() - t0
+
+    checks = parallel_checks(rows, ref["losses"], os.getpid())
+    checks["dryrun"] = all(math.isfinite(dryrun[k]["loss"])
+                           for k in ("gpt", "pipeline"))
+    ref_step = statistics.median(ref["step_ms"][1:])
+    for kind in ("tp", "fsdp"):
+        r0 = rows[kind][0]
+        emit(f"parallel_{kind}", ranks=PAR_RANKS, transport="gloo",
+             config="gpt2_small", remat=True, batch=PAR_BATCH, seq=PAR_SEQ,
+             dtype="bfloat16", steps=PAR_STEPS,
+             losses=r0["losses"], tp1_losses=ref["losses"],
+             loss_tol=TOL_PAR_LOSS, param_move_tol=TOL_PAR_PARAMS,
+             max_param_move_err=max(r0["param_move_errs"]),
+             max_param_err=max(r0["param_errs"]),
+             grad_tol=TOL_PAR_GRADS, max_grad_err=max(r0["grad_errs"]),
+             grad_errs=r0["grad_errs"],
+             grad_control_errs=r0["grad_control_errs"],
+             step_ms=[r["step_ms"] for r in rows[kind]],
+             step_ms_median=statistics.median(r0["step_ms"][1:]),
+             tp1_step_ms=ref["step_ms"], tp1_step_ms_median=ref_step,
+             launches=[r["launches"] for r in rows[kind]],
+             expected_launches=parallel_expected_launches(kind),
+             collectives_per_step=[per_step(r["traffic"], PAR_STEPS)
+                                   for r in rows[kind]],
+             wqkv_block=r0["wqkv_block"], w1_block=r0["w1_block"],
+             block_bytes=r0["block_bytes"], params_bytes=r0["params_bytes"],
+             max_memory_allocated_gb=[r["max_memory_allocated_gb"]
+                                      for r in rows[kind]])
+    for kind in ("ulysses", "ring", "moe", "gpipe", "1f1b"):
+        emit(f"parallel_{kind}", ranks=PAR_RANKS, transport="gloo",
+             rows=[{k: (per_step(v, 1) if k == "traffic" else v)
+                    for k, v in r.items()} for r in rows[kind]])
+    emit("parallel", ranks=PAR_RANKS, backend="gloo", device="cuda:0",
+         transports=transports([{k: rows[k][i]["traffic"] for k in rows}
+                                for i in range(PAR_RANKS)]),
+         dryrun=dryrun, dryrun_s=dryrun_s,
+         phase_s=time.perf_counter() - t_phase, checks=checks)
+    failed = [name for name, ok in checks.items() if not ok]
+    check(not failed, f"parallel checks failed: {failed}")
+
+    def summed(kinds):
+        return {n: sum(r["launches"][n] for k in kinds for r in rows[k])
+                for n in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")}
+
+    return {"tp_train_ranks": summed(["tp"]),
+            "fsdp_train_ranks": summed(["fsdp"]),
+            "ulysses_ranks": summed(["ulysses"]),
+            "pp_train_ranks": summed(["gpipe", "1f1b"])}
+
+
 def main() -> int:
     import torch
 
@@ -2656,6 +3343,7 @@ def main() -> int:
     trained = phase_train(peaks)
     train_dp = phase_train_dp(peaks, trained[True]["losses"])
     train_feed = phase_train_feed(peaks)
+    parallel = phase_parallel()
     phase_train_vs_cpu()
     phase_train_profile()
     llama = phase_llama_train(peaks)
@@ -2670,15 +3358,16 @@ def main() -> int:
     # (counted in that process), one GPT-2-small train step with remat
     # (the preset) and one without, the 5 steps of the Train worker and
     # the 5 fed ViT steps of the train_feed worker (each counted in its
-    # process), one llama, ViT and MoE train step each, and one ViT
-    # classifier call.
+    # process), the parallel phase's tp=2 and fsdp=2 steps, Ulysses and
+    # pipelines (each summed over its 2 ranks' processes), one llama, ViT
+    # and MoE train step each, and one ViT classifier call.
     pool = {name: pool_actor[name] for name in serving}
     paths = {"serving": serving, "dag_fused_replays": dag_fused,
              "processor_pool_actor": pool,
              "train": trained[True]["launches"],
              "train_no_remat": trained[False]["launches"],
              "train_dp_worker": train_dp["launches"],
-             "train_feed_worker": train_feed,
+             "train_feed_worker": train_feed, **parallel,
              "llama_train": llama["launches"], **vit, "moe_train": moe}
     by_path = {name: {path: launches[name]
                       for path, launches in paths.items()}

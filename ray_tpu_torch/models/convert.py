@@ -14,6 +14,7 @@ import numpy as np
 import torch
 
 from .._device import DeviceLike, resolve_device
+from .._tree import tree_leaves, tree_map  # noqa: F401
 
 
 # Leaves that the JAX families keep in float32 whatever the model dtype:
@@ -38,25 +39,6 @@ def _to_tensor(arr, device: torch.device, dtype: Optional[torch.dtype],
     return t.to(device)
 
 
-def _tree_map(fn, node, key: Optional[str] = None):
-    """``fn(leaf, key)`` over a tree of dicts and lists, ``key`` the name
-    of the dict entry that holds the leaf (a list passes its own on)."""
-    if isinstance(node, dict):
-        return {k: _tree_map(fn, v, k) for k, v in node.items()}
-    if isinstance(node, (list, tuple)):
-        return type(node)(_tree_map(fn, v, key) for v in node)
-    return fn(node, key)
-
-
-def tree_leaves(node: Any) -> list:
-    """The tensors of a param dict (dicts and lists of tensors), in order."""
-    if isinstance(node, dict):
-        return [t for v in node.values() for t in tree_leaves(v)]
-    if isinstance(node, (list, tuple)):
-        return [t for v in node for t in tree_leaves(v)]
-    return [node]
-
-
 def from_jax_params(params: Any, device: DeviceLike = None,
                     dtype: Optional[torch.dtype] = None) -> Any:
     """The JAX param dict (arrays, or numpy arrays of them) -> the same
@@ -68,11 +50,11 @@ def from_jax_params(params: Any, device: DeviceLike = None,
     goes by the leaf's key: MoE's 2-D router gate and ViT's 2-D
     positions are float32 too."""
     device = resolve_device(device)
-    return _tree_map(lambda arr, key: _to_tensor(arr, device, dtype, key),
+    return tree_map(lambda arr, key: _to_tensor(arr, device, dtype, key),
                      params)
 
 
 def params_to(params: Any, device: DeviceLike) -> Any:
     """A param dict with every tensor moved to ``device``."""
     device = resolve_device(device)
-    return _tree_map(lambda t, _: t.to(device), params)
+    return tree_map(lambda t, _: t.to(device), params)

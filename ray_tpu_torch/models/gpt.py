@@ -10,12 +10,23 @@ model dtype, norms and softmax in f32, attention through
 ``make_train_step`` the AdamW train step over it (``models/_training.py``).
 ``remat`` checkpoints each block: its activations are recomputed in the
 backward instead of kept.
+
+Tensor parallelism (``tp_axis``, a bound mesh axis; what XLA makes of
+``tp_rules`` in the JAX package) is Megatron's: ``wqkv`` and ``w1`` are
+split by columns (``wqkv`` head-aligned: each rank holds the q, k and v
+columns of its heads, ``TP_SEGMENTS``), ``wo`` and ``w2`` by rows, each
+pair joined by an identity-forward / all-reduce-backward ("f") and an
+all-reduce-forward / identity-backward ("g"); the tied embedding is split
+by vocab rows, its lookup summed over the ranks, and the cross entropy
+runs on each rank's vocab columns with the max, the sum of exponentials
+and the target's logit combined over ``tp``. The loss and every
+gradient are the unsplit model's.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -24,8 +35,15 @@ from torch.utils.checkpoint import checkpoint
 from .._device import DeviceLike, resolve_device
 from ..ops.attention import flash_attention
 from ..ops.layers import rms_norm, rope
+from ..parallel.ops import (allgather, allreduce, allreduce_max, axis_index,
+                            grad_allreduce, remat_context)
 from ._init import normal
-from ._training import make_train_step_for, place_params
+from ._training import (gather_params, leaf_spec, make_train_step_for,
+                        place_params, sharding_axes)
+
+# wqkv's columns are [q | k | v]: a tp split takes each rank's heads of
+# each of the three (param key -> (dim, parts)).
+TP_SEGMENTS = {"wqkv": (1, 3)}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -121,22 +139,36 @@ def gpt_param_axes(cfg: GPTConfig) -> Dict:
 # ---------------------------------------------------------------------------
 # forward
 # ---------------------------------------------------------------------------
-def _block(x: torch.Tensor, layer: Dict, cfg: GPTConfig) -> torch.Tensor:
-    b, s, d = x.shape
-    h, hd = cfg.n_heads, cfg.head_dim
+def _block(x: torch.Tensor, layer: Dict, cfg: GPTConfig,
+           tp: Optional[str] = None) -> torch.Tensor:
+    """One block. With ``tp``, ``layer`` holds this rank's blocks: its
+    heads (n_heads / tp of them) and its d_ff / tp hidden units."""
+    b, s, _ = x.shape
+    hd = cfg.head_dim
     # Attention
     y = rms_norm(x, layer["ln1"])
-    q, k, v = (y @ layer["wqkv"]).split(d, dim=-1)
+    if tp is not None:
+        y = grad_allreduce(y, tp)
+    width = layer["wqkv"].shape[-1] // 3
+    h = width // hd
+    q, k, v = (y @ layer["wqkv"]).split(width, dim=-1)
     q = rope(q.reshape(b, s, h, hd).transpose(1, 2))
     k = rope(k.reshape(b, s, h, hd).transpose(1, 2))
     v = v.reshape(b, s, h, hd).transpose(1, 2).contiguous()
     attn = flash_attention(q, k, v, True, None)
-    attn = attn.transpose(1, 2).reshape(b, s, d)
-    x = x + attn @ layer["wo"]
+    attn = attn.transpose(1, 2).reshape(b, s, width)
+    out = attn @ layer["wo"]
+    if tp is not None:
+        out = allreduce(out, tp)
+    x = x + out
     # MLP: jax.nn.gelu's default is the tanh form.
     y = rms_norm(x, layer["ln2"])
-    x = x + F.gelu(y @ layer["w1"], approximate="tanh") @ layer["w2"]
-    return x
+    if tp is not None:
+        y = grad_allreduce(y, tp)
+    out = F.gelu(y @ layer["w1"], approximate="tanh") @ layer["w2"]
+    if tp is not None:
+        out = allreduce(out, tp)
+    return x + out
 
 
 def _head(params: Dict) -> torch.Tensor:
@@ -144,10 +176,26 @@ def _head(params: Dict) -> torch.Tensor:
     return params["embed"].T if head is None else head
 
 
-def _backbone(params: Dict, tokens: torch.Tensor,
-              cfg: GPTConfig) -> torch.Tensor:
+def _vocab_offset(params: Dict, tp: str) -> int:
+    """The first vocab row of this rank's block of the embedding."""
+    return axis_index(tp) * params["embed"].shape[0]
+
+
+def _embed(params: Dict, tokens: torch.Tensor,
+           tp: Optional[str]) -> torch.Tensor:
+    if tp is None:
+        return params["embed"][tokens]
+    emb = params["embed"]
+    local = tokens - _vocab_offset(params, tp)
+    inside = (local >= 0) & (local < emb.shape[0])
+    x = emb[local.clamp(0, emb.shape[0] - 1)] * inside[..., None]
+    return allreduce(x, tp)
+
+
+def _backbone(params: Dict, tokens: torch.Tensor, cfg: GPTConfig,
+              tp: Optional[str] = None) -> torch.Tensor:
     """Embedding + blocks + final norm: [b, s] -> [b, s, d]."""
-    x = params["embed"][tokens]
+    x = _embed(params, tokens, tp)
     remat = cfg.remat and torch.is_grad_enabled()
     for layer in params["layers"]:
         if remat:
@@ -156,32 +204,40 @@ def _backbone(params: Dict, tokens: torch.Tensor,
             # checkpoint keeps only the block's input and recomputes the
             # whole block in the backward. The values are the same; that
             # policy is not ported.
-            x = checkpoint(_block, x, layer, cfg, use_reentrant=False)
+            x = checkpoint(_block, x, layer, cfg, tp, use_reentrant=False,
+                           context_fn=remat_context)
         else:
-            x = _block(x, layer, cfg)
+            x = _block(x, layer, cfg, tp)
     return rms_norm(x, params["lnf"])
 
 
-def gpt_forward(params: Dict, tokens: torch.Tensor,
-                cfg: GPTConfig) -> torch.Tensor:
-    """tokens [batch, seq] int -> logits [batch, seq, vocab] (fp32)."""
-    x = _backbone(params, tokens, cfg)
-    return (x @ _head(params)).float()
+def gpt_forward(params: Dict, tokens: torch.Tensor, cfg: GPTConfig,
+                tp_axis: Optional[str] = None) -> torch.Tensor:
+    """tokens [batch, seq] int -> logits [batch, seq, vocab] (fp32).
+    With ``tp_axis``, ``params`` are this rank's tp blocks and every rank
+    gets all the logits."""
+    x = _backbone(params, tokens, cfg, tp_axis)
+    if tp_axis is None:
+        return (x @ _head(params)).float()
+    x = grad_allreduce(x, tp_axis)
+    return allgather((x @ _head(params)).float(), tp_axis, axis=-1)
 
 
 _LOSS_CHUNK = 4096
 
 
 def gpt_loss(params: Dict, batch: Tuple[torch.Tensor, torch.Tensor],
-             cfg: GPTConfig) -> torch.Tensor:
+             cfg: GPTConfig, tp_axis: Optional[str] = None) -> torch.Tensor:
     """Next-token cross entropy; batch = (tokens, targets) [b, s].
 
     Chunked over rows as the JAX package does: the largest power of two
     up to ``_LOSS_CHUNK`` that divides the rows, each chunk's [chunk,
     vocab] logits in f32, the log-likelihoods summed in f32. A row count
-    with no such divisor above 1 takes the unchunked form."""
+    with no such divisor above 1 takes the unchunked form. With
+    ``tp_axis`` each rank holds a block of the vocab: the logits' max,
+    sum of exponentials and target logit are combined over the axis."""
     tokens, targets = batch
-    x = _backbone(params, tokens, cfg)
+    x = _backbone(params, tokens, cfg, tp_axis)
     head = _head(params)
     xf = x.reshape(-1, x.shape[-1])
     tf = targets.reshape(-1).long()
@@ -189,57 +245,121 @@ def gpt_loss(params: Dict, batch: Tuple[torch.Tensor, torch.Tensor],
     chunk = _LOSS_CHUNK
     while chunk > 1 and rows % chunk:
         chunk //= 2
-    if chunk <= 1:
+    if tp_axis is None and chunk <= 1:
         logits = (xf @ head).float()
         ll = F.log_softmax(logits, dim=-1).gather(1, tf[:, None])[:, 0]
         return -ll.mean()
+    chunk = max(chunk, 1)
+    if tp_axis is not None:
+        xf = grad_allreduce(xf, tp_axis)
+        lo = _vocab_offset(params, tp_axis)
     total = torch.zeros((), dtype=torch.float32, device=x.device)
     for start in range(0, rows, chunk):
         lg = (xf[start:start + chunk] @ head).float()
-        tgt = lg.gather(1, tf[start:start + chunk, None])[:, 0]
-        total = total + (tgt - torch.logsumexp(lg, dim=-1)).sum()
+        ts = tf[start:start + chunk]
+        if tp_axis is None:
+            tgt = lg.gather(1, ts[:, None])[:, 0]
+            total = total + (tgt - torch.logsumexp(lg, dim=-1)).sum()
+            continue
+        local = ts - lo
+        inside = (local >= 0) & (local < lg.shape[1])
+        tgt = lg.gather(1, local.clamp(0, lg.shape[1] - 1)[:, None])[:, 0]
+        m = allreduce_max(lg.max(dim=-1).values, tp_axis)
+        sums = allreduce(torch.stack([
+            (lg - m[:, None]).exp().sum(-1),
+            torch.where(inside, tgt, torch.zeros_like(tgt))]), tp_axis)
+        total = total + (sums[1] - (m + sums[0].log())).sum()
     return -total / rows
 
 
 # ---------------------------------------------------------------------------
 # training step
 # ---------------------------------------------------------------------------
+def _tp_axis(cfg: GPTConfig, mesh, rules) -> Optional[str]:
+    """``"tp"`` when the rules split GPT's params over a ``tp`` above 1,
+    checking that they split them as Megatron's layout has it; else
+    None."""
+    if mesh is None or rules is None:
+        return None
+    axes = gpt_param_axes(cfg)
+    if "tp" not in sharding_axes(axes, mesh, rules):
+        return None
+    want = {"ln1": (), "wqkv": (1,), "wo": (0,), "ln2": (), "w1": (1,),
+            "w2": (0,), "embed": (0,), "lnf": (), "head": (1,)}
+    layer = axes["layers"][0]
+    tops = {k: v for k, v in axes.items() if k != "layers"}
+    for key, ax in list(layer.items()) + list(tops.items()):
+        spec = leaf_spec(mesh, rules, ax)
+        dims = tuple(d for d, e in enumerate(spec)
+                     if e is not None and "tp" in ((e,) if isinstance(
+                         e, str) else e))
+        if dims != want[key]:
+            raise NotImplementedError(
+                f"rules split GPT's {key} over tp on dims {dims}; the "
+                f"tensor-parallel GPT splits it on {want[key]}")
+    if cfg.n_heads % mesh.size(mesh.mesh_dim_names.index("tp")):
+        raise ValueError(f"{cfg.n_heads} heads do not split over tp")
+    return "tp"
+
+
 def make_train_step(cfg: GPTConfig, optimizer=None,
                     device: DeviceLike = None, mesh=None, rules=None):
     """Build (init_state, train_step) for ``cfg`` on ``device`` (None: the
     CUDA card; raises without one). ``optimizer`` maps the list of params
     to a ``torch.optim.Optimizer`` (default: AdamW as the JAX package's
     ``optax.adamw(3e-4, weight_decay=0.01)``). With ``mesh`` and
-    ``rules``, the data-parallel step: feed it ``shard_batch`` of the
-    global batch. See ``_training.make_train_step_for``."""
+    ``rules`` (``tp_rules``, ``fsdp_rules``, ``dcn_rules``), the step on
+    the mesh: feed it ``shard_batch`` of the global batch;
+    ``gather_gpt_params(state["params"], cfg, mesh, rules)`` gives them
+    whole. See ``_training.make_train_step_for``."""
     device = resolve_device(device)
+    tp = _tp_axis(cfg, mesh, rules)
     return make_train_step_for(
         lambda generator: gpt_init(cfg, generator, device),
-        lambda params, batch: gpt_loss(params, batch, cfg),
+        lambda params, batch: gpt_loss(params, batch, cfg, tp),
         optimizer=optimizer, device=device, axes=gpt_param_axes(cfg),
-        mesh=mesh, rules=rules)
+        mesh=mesh, rules=rules, model_axes=("tp",) if tp else (),
+        segments=TP_SEGMENTS)
 
 
 def shard_params(params: Dict, cfg: GPTConfig, mesh, rules) -> Dict:
-    """Place a param tree onto a mesh per the logical-axis rule table."""
-    return place_params(params, gpt_param_axes(cfg), mesh, rules)
+    """Place a param tree onto a mesh per the logical-axis rule table:
+    this rank's blocks (``wqkv`` head-aligned)."""
+    return place_params(params, gpt_param_axes(cfg), mesh, rules,
+                        TP_SEGMENTS)
 
 
-def shard_batch(batch, mesh, axis: str = "dp"):
-    """This rank's slice along dim 0 of each array of a global batch: the
-    rows at its coordinate on the mesh's ``axis``, as the JAX package's
-    ``shard_batch`` shards them (a tuple of numpy arrays or tensors in,
-    the same out)."""
+def gather_gpt_params(params: Dict, cfg: GPTConfig, mesh, rules) -> Dict:
+    """The inverse of ``shard_params``: every param whole, in the JAX
+    layout, on every rank."""
+    return gather_params(params, gpt_param_axes(cfg), mesh, rules,
+                         TP_SEGMENTS)
+
+
+def shard_batch(batch, mesh, axis=None):
+    """This rank's rows (dim 0) of each array of a global batch: its block
+    at its coordinate on ``axis`` (a mesh axis or a tuple of them), as
+    the JAX package's ``shard_batch`` shards them (a tuple of numpy
+    arrays or tensors in, the same out). ``axis=None`` splits over every
+    batch axis of the mesh (``dp_dcn``, ``dp`` and ``fsdp``), where JAX's
+    default is ``"dp"``: fsdp and slice ranks then hold rows of their
+    own instead of repeating the same ones."""
+    from ..parallel.ops import axis_coordinate
+    from ._training import BATCH_AXES
+
     names = mesh.mesh_dim_names or ()
-    if axis not in names:
+    if axis is None:
+        axis = tuple(a for a in BATCH_AXES if a in names)
+    axes = (axis,) if isinstance(axis, str) else tuple(axis)
+    axes = tuple(a for a in axes if a in names)
+    if not axes:
         return batch
-    n = int(mesh.size(names.index(axis)))
-    coord = int(mesh.get_local_rank(axis))
+    coord, n = axis_coordinate(mesh, axes)
 
     def part(x):
         if x.shape[0] % n:
             raise ValueError(f"batch of {x.shape[0]} rows does not split "
-                             f"over {axis}={n}")
+                             f"over {axes}={n}")
         rows = x.shape[0] // n
         return x[coord * rows:(coord + 1) * rows]
 

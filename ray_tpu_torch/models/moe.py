@@ -5,8 +5,10 @@ is the top-2 routed expert layer ``parallel.moe.moe_layer``, with the
 same config fields and param dict. The router ``gate`` stays f32 whatever
 the model dtype (a flip reroutes a whole token); attention is causal
 through ``ops.flash_attention`` (the Hopper kernels on CUDA); the head is
-tied to the embedding. Only the single-device dense dispatch is ported:
-a config with ``ep_axis`` set raises.
+tied to the embedding. With ``ep_axis`` set, ``moe_forward`` and
+``moe_loss`` run inside ``parallel.ops.shard_map`` with the expert
+weights split over that axis: each layer's tokens go to their experts'
+ranks by all-to-all (``parallel.moe.moe_layer``).
 """
 
 from __future__ import annotations
@@ -22,6 +24,7 @@ from .._device import DeviceLike, resolve_device
 from ..ops.attention import flash_attention
 from ..ops.layers import rms_norm, rope
 from ..parallel.moe import moe_layer
+from ..parallel.ops import grad_allreduce, remat_context
 from ._init import normal
 from ._training import make_train_step_for
 
@@ -39,20 +42,13 @@ class MoEConfig:
     max_seq_len: int = 1024
     dtype: torch.dtype = torch.bfloat16
     remat: bool = True
-    # Mesh axis for expert parallelism in the JAX package; carried, but
-    # only None (the single-device dense dispatch) is ported.
+    # Mesh axis name for expert parallelism (used inside shard_map);
+    # None = the single-shard dense dispatch.
     ep_axis: Optional[str] = None
 
     @property
     def head_dim(self) -> int:
         return self.d_model // self.n_heads
-
-    def __post_init__(self):
-        if self.ep_axis is not None:
-            raise NotImplementedError(
-                f"MoEConfig(ep_axis={self.ep_axis!r}): expert parallelism "
-                "belongs to the port's parallel-strategies slice "
-                "(ROADMAP.md, Queue 1) and is not ported yet")
 
     @classmethod
     def tiny(cls) -> "MoEConfig":
@@ -151,7 +147,8 @@ def moe_forward(params: Dict, tokens: torch.Tensor, cfg: MoEConfig
             # JAX's policy here is nothing_saveable: keep the block's
             # input only and recompute the block in the backward, which
             # is what torch's checkpoint does.
-            x, aux = checkpoint(_block, x, layer, cfg, use_reentrant=False)
+            x, aux = checkpoint(_block, x, layer, cfg, use_reentrant=False,
+                                context_fn=remat_context)
         else:
             x, aux = _block(x, layer, cfg)
         aux_total = aux_total + aux
@@ -168,6 +165,11 @@ def moe_loss(params: Dict, batch: Tuple[torch.Tensor, torch.Tensor],
     logits, aux = moe_forward(params, tokens, cfg)
     logp = F.log_softmax(logits, dim=-1)
     ll = logp.gather(-1, targets.long()[..., None])[..., 0]
+    if cfg.ep_axis is not None:
+        # aux is the same on every rank of the axis and enters this rank's
+        # own loss: its gradient is summed over the axis (the transpose
+        # of JAX's implicit pvary).
+        aux = grad_allreduce(aux, cfg.ep_axis)
     return -ll.mean() + cfg.aux_loss_weight * aux
 
 

@@ -66,9 +66,10 @@ def best_mesh_shape(n_devices: int, model_parallel: int = 1
     return n_devices // model_parallel, model_parallel
 
 
-def _world() -> Tuple[int, str]:
+def _world(device_type: Optional[str] = None) -> Tuple[int, str]:
     """(world size, device type) of the initialized default group: CUDA
-    under NCCL, the CPU under gloo."""
+    under NCCL, the CPU under gloo unless ``device_type`` says ``"cuda"``
+    (ranks that share one card talk gloo: NCCL takes one rank a GPU)."""
     import torch.distributed as dist
 
     if not dist.is_initialized():
@@ -76,29 +77,73 @@ def _world() -> Tuple[int, str]:
             "a mesh spans a torch.distributed world: initialize the "
             "process group first (TorchTrainer's backend does, in each "
             "worker)")
-    device_type = "cuda" if dist.get_backend() == "nccl" else "cpu"
+    backend = dist.get_backend()
+    if device_type is None:
+        device_type = "cuda" if backend == "nccl" else "cpu"
+    if backend == "nccl" and device_type != "cuda":
+        raise ValueError(f"a {device_type} mesh over NCCL")
     return dist.get_world_size(), device_type
 
 
 def make_mesh(config: Optional[MeshConfig] = None,
-              axis_names: Optional[Sequence[str]] = None):
+              axis_names: Optional[Sequence[str]] = None,
+              device_type: Optional[str] = None):
     """A DeviceMesh over the whole world with the framework's axis names
-    (every name of ``AXIS_ORDER``, size 1 where the config leaves it)."""
+    (every name of ``AXIS_ORDER``, size 1 where the config leaves it).
+    ``device_type`` defaults to the backend's (see ``_world``)."""
     from torch.distributed.device_mesh import init_device_mesh
 
     config = config or MeshConfig()
-    world, device_type = _world()
+    world, device_type = _world(device_type)
     shape_map = config.resolve(world)
     names = tuple(axis_names or AXIS_ORDER)
     shape = tuple(shape_map.get(a, 1) for a in names)
     return init_device_mesh(device_type, shape, mesh_dim_names=names)
 
 
-def make_1d_mesh(axis: str = "dp"):
+def slice_count(slice_ids: Optional[Sequence[int]] = None) -> int:
+    """Number of slices among the ranks: the distinct ids in
+    ``slice_ids`` (one per rank). torch.distributed ranks carry no slice
+    id, so with none given the world is one slice, as JAX counts CPU
+    and single-slice backends."""
+    return max(1, len(set(slice_ids or ())))
+
+
+def make_multislice_mesh(config: Optional[MeshConfig] = None,
+                         dcn_axis: str = "dp_dcn",
+                         num_slices: Optional[int] = None,
+                         device_type: Optional[str] = None):
+    """A mesh over several slices: a leading data-parallel ``dcn_axis``
+    over the slices, then the usual axes within each slice.
+
+    Only data parallelism crosses the slow links between slices (one
+    gradient all-reduce a step); the other axes stay inside a slice. The
+    ranks carry no slice id, so ``num_slices`` says how many there are
+    and slices are contiguous groups of ranks, as JAX emulates them on
+    its CPU backend."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    config = config or MeshConfig()
+    world, device_type = _world(device_type)
+    n_slices = num_slices or slice_count()
+    if n_slices <= 1:
+        raise ValueError(
+            "make_multislice_mesh needs >1 slice (pass num_slices); use "
+            "make_mesh for a single slice")
+    if world % n_slices != 0:
+        raise ValueError(f"{world} ranks not divisible into {n_slices} "
+                         f"slices")
+    shape_map = config.resolve(world // n_slices)
+    names = (dcn_axis,) + AXIS_ORDER
+    shape = (n_slices,) + tuple(shape_map.get(a, 1) for a in AXIS_ORDER)
+    return init_device_mesh(device_type, shape, mesh_dim_names=names)
+
+
+def make_1d_mesh(axis: str = "dp", device_type: Optional[str] = None):
     """A one-axis DeviceMesh over the whole world."""
     from torch.distributed.device_mesh import init_device_mesh
 
-    world, device_type = _world()
+    world, device_type = _world(device_type)
     return init_device_mesh(device_type, (world,), mesh_dim_names=(axis,))
 
 
@@ -107,3 +152,20 @@ def mesh_axis_size(mesh, axis: str) -> int:
     if axis not in names:
         return 1
     return int(mesh.size(names.index(axis)))
+
+
+def local_slice_info() -> Dict[str, object]:
+    """This rank's view of the world (JAX's process index and count,
+    local and global devices, platform): one device a rank."""
+    import torch
+    import torch.distributed as dist
+
+    backend = dist.get_backend()
+    local = torch.cuda.device_count() if backend == "nccl" else 1
+    return {
+        "process_index": dist.get_rank(),
+        "process_count": dist.get_world_size(),
+        "local_devices": local,
+        "global_devices": dist.get_world_size(),
+        "platform": "gpu" if backend == "nccl" else "cpu",
+    }

@@ -1,13 +1,16 @@
 """Mixture-of-Experts: top-2 routing with capacity, dense dispatch.
 
-Counterpart of ``ray_tpu/parallel/moe.py`` on one device. Routing
-(GShard style: the second choice masked out of the first, queue
-positions continued after all first choices, tokens past an expert's
-capacity dropped) and the expert MLPs run in f32, the dispatch and
-combine as dense einsums over [tokens, experts, capacity], as the JAX
-package's single-shard branch does. Its expert-parallel branch (an
-all-to-all over a mesh axis) belongs to the parallel-strategies slice
-(``ROADMAP.md``, Queue 1) and is not ported: ``moe_layer`` raises for it.
+Counterpart of ``ray_tpu/parallel/moe.py``. Routing (GShard style:
+the second choice masked out of the first, queue positions continued
+after all first choices, tokens past an expert's capacity dropped) and
+the expert MLPs run in f32, the dispatch and combine as dense einsums
+over [tokens, experts, capacity], as the JAX package's does. With
+``axis_name`` (inside ``shard_map``, experts split over the axis) each
+rank routes its own tokens, sends every expert's buffer to the rank that
+holds the expert with one tiled ``all_to_all``, runs its experts, and
+sends the outputs back with another; the aux loss is averaged over the
+axis. The dispatch, combine and exchanges are plain torch: the JAX
+package has no Pallas kernel for them.
 """
 
 from __future__ import annotations
@@ -16,6 +19,8 @@ from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+
+from . import ops
 
 
 def top2_gating(logits: torch.Tensor, capacity: int
@@ -67,23 +72,49 @@ def moe_layer(x: torch.Tensor, gate_w: torch.Tensor,
               capacity_factor: float = 1.25,
               axis_name: Optional[str] = None
               ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Top-2 MoE FFN on one device. x [tokens, d]; gate_w [d, E];
-    expert_w1 [E, d, f]; expert_w2 [E, f, d] -> (y [tokens, d] in x's
-    dtype, aux_loss). ``axis_name`` (expert parallelism) is not ported
-    and raises NotImplementedError."""
-    if axis_name is not None:
-        raise NotImplementedError(
-            f"moe_layer(axis_name={axis_name!r}): the expert-parallel "
-            "branch belongs to the port's parallel-strategies slice "
-            "(ROADMAP.md, Queue 1) and is not ported yet")
-    t = x.shape[0]
+    """Top-2 MoE FFN. x [tokens, d]; gate_w [d, E]; expert_w1 [E, d, f];
+    expert_w2 [E, f, d] -> (y [tokens, d] in x's dtype, aux_loss).
+
+    With ``axis_name``, call inside ``shard_map`` with the expert weights
+    split on their expert axis (this rank's E / n experts) and ``x`` this
+    rank's tokens: the tokens go to their experts' ranks and back. Out of
+    a shard_map the axis name is unbound and raises NameError, as in
+    JAX."""
+    t, d = x.shape
     e = gate_w.shape[-1]
     logits = x.float() @ gate_w.float()
     capacity = max(1, int(capacity_factor * t * 2 / e))
+    if axis_name is not None:
+        n = ops.axis_size(axis_name)
     dispatch, combine, aux = top2_gating(logits, capacity)
+    # [E, C, d] expert inputs built from this rank's tokens.
     xe = torch.einsum("td,tec->ecd", x.float(), dispatch.float())
-    h = F.gelu(torch.einsum("ecd,edf->ecf", xe, expert_w1.float()),
+    if axis_name is None:
+        ye = _experts(xe, expert_w1, expert_w2)
+        y = torch.einsum("ecd,tec->td", ye, combine)
+        return y.to(x.dtype), aux
+
+    # Expert-parallel: this rank owns e_local = E / n experts. Group the
+    # buffers by destination rank, [n_dest, e_local, C, d]; after the
+    # exchange recv[src, i] holds rank src's tokens for my expert i.
+    e_local = expert_w1.shape[0]
+    recv = ops.all_to_all(xe.reshape(n, e_local, capacity, d), axis_name,
+                          split_axis=0, concat_axis=0)
+    # Sources folded into the capacity axis: [e_local, n*C, d].
+    xin = recv.transpose(0, 1).reshape(e_local, n * capacity, d)
+    ye = _experts(xin, expert_w1, expert_w2)
+    # Back to the source ranks: got[j, i] = my tokens' outputs from
+    # expert j * e_local + i, i.e. the global expert axis in order.
+    back = ye.reshape(e_local, n, capacity, d).transpose(0, 1)
+    got = ops.all_to_all(back.contiguous(), axis_name, split_axis=0,
+                         concat_axis=0)
+    y = torch.einsum("ecd,tec->td", got.reshape(e, capacity, d), combine)
+    return y.to(x.dtype), ops.allreduce_mean(aux, axis_name)
+
+
+def _experts(xe: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor
+             ) -> torch.Tensor:
+    """Each expert's MLP on its buffer: [E, C, d] -> [E, C, d], f32."""
+    h = F.gelu(torch.einsum("ecd,edf->ecf", xe, w1.float()),
                approximate="tanh")  # jax.nn.gelu's default form
-    ye = torch.einsum("ecf,efd->ecd", h, expert_w2.float())
-    y = torch.einsum("ecd,tec->td", ye, combine)
-    return y.to(x.dtype), aux
+    return torch.einsum("ecf,efd->ecd", h, w2.float())

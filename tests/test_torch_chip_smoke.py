@@ -794,3 +794,186 @@ class TestTraceSummary:
         assert cs.TRACE_TAKES == 3 and len(calls) == runs
         assert got["device_events"] == kept and got["empty_traces"] == empty
         assert os.listdir(tmp_path) == []
+
+
+class TestParallelPhase:
+    """The parallel phase's host-side helpers: the launches each rank must
+    show, the bytes each collective must move, the transport report, and
+    the checks over the ranks' rows."""
+
+    def test_per_rank_launch_expectations(self):
+        # tp and fsdp run every layer's attention on each rank (half the
+        # heads or half the rows): the remat step's 24/12/12, 3 steps.
+        want = {"flash_fwd": 72, "flash_bwd_dq": 36, "flash_bwd_dkv": 36}
+        assert cs.parallel_expected_launches("tp") == want
+        assert cs.parallel_expected_launches("fsdp") == want
+        assert cs.parallel_expected_launches("ulysses") == {
+            "flash_fwd": 1, "flash_bwd_dq": 1, "flash_bwd_dkv": 1}
+        # 6 blocks a stage x 4 microbatches; 1F1B runs each stage's
+        # forward again for its backward.
+        assert cs.parallel_expected_launches("gpipe") == {
+            "flash_fwd": 24, "flash_bwd_dq": 24, "flash_bwd_dkv": 24}
+        assert cs.parallel_expected_launches("1f1b") == {
+            "flash_fwd": 48, "flash_bwd_dq": 24, "flash_bwd_dkv": 24}
+
+    @pytest.fixture(scope="class")
+    def pool(self):
+        from ray_tpu_torch.parallel.launch import RankPool
+
+        with RankPool(2, "cpu", timeout=120) as pool:
+            yield pool
+
+    @pytest.mark.parametrize("remat", [True, False])
+    def test_tp_bytes_reckoning_matches_a_tp_step(self, pool, remat):
+        import torch_parallel_ranks as ranks
+        from ray_tpu_torch.models import GPTConfig
+
+        fields = {"vocab_size": 512, "d_model": 64, "n_heads": 4,
+                  "n_layers": 2, "d_ff": 128, "max_seq_len": 128,
+                  "remat": remat}
+        (traffic, _), _ = pool.run(ranks.step_traffic, fields,
+                                   {"dp": 1, "tp": 2}, "tp", 4, 48, 2)
+        cfg = dataclasses.replace(GPTConfig(**fields), dtype=torch.float32)
+        assert set(traffic) == {"all_reduce"}
+        assert traffic["all_reduce"]["bytes"] == \
+            2 * cs.tp_all_reduce_bytes(cfg, 4, 48)
+        # 192 rows: the loss's chunk is 64 (a power of two dividing them);
+        # with remat the attention's sum runs again in the recompute.
+        assert cs.tp_all_reduce_bytes(cfg, 4, 48) == \
+            ((5 if remat else 4) * 2 + 2) * 4 * 48 * 64 * 4 + 3 * 3 * 64 * 4
+
+    def test_fsdp_bytes_reckoning_matches_an_fsdp_step(self, pool):
+        import torch_parallel_ranks as ranks
+
+        fields = {"vocab_size": 512, "d_model": 64, "n_heads": 4,
+                  "n_layers": 2, "d_ff": 128, "max_seq_len": 128}
+        (traffic, params_bytes), _ = pool.run(
+            ranks.step_traffic, fields, {"dp": 1, "fsdp": 2}, "fsdp", 4, 32,
+            3)
+        want = cs.fsdp_bytes(params_bytes, 2)
+        assert {op: traffic[op]["bytes"] for op in want} == \
+            {op: 3 * n for op, n in want.items()}
+
+    def test_per_step_and_transports(self):
+        staged = {"ppermute": {"calls": 8, "bytes": 800,
+                               "transports": ["gloo, host-staged"]}}
+        plain = {"all_reduce": {"calls": 6, "bytes": 600,
+                                "transports": ["gloo"]}}
+        assert cs.per_step(plain, 3) == {"all_reduce": {
+            "calls_per_step": 2.0, "bytes_per_step": 200.0,
+            "transports": ["gloo"]}}
+        ranks = [{"tp": plain, "gpipe": staged}, {"tp": plain,
+                                                  "gpipe": staged}]
+        assert cs.transports(ranks) == {"all_reduce": ["gloo"],
+                                        "ppermute": ["gloo, host-staged"]}
+
+    def _rows(self):
+        from ray_tpu_torch.models import GPTConfig
+
+        tp_bytes = cs.PAR_STEPS * cs.tp_all_reduce_bytes(
+            GPTConfig.gpt2_small(), cs.PAR_BATCH, cs.PAR_SEQ)
+        fsdp = {op: n * cs.PAR_STEPS
+                for op, n in cs.fsdp_bytes(1000, cs.PAR_RANKS).items()}
+
+        controls = {"tp": {"doubled": 1.0, "wqkv_contiguous_blocks": 1.4,
+                           "f_sums_dropped": 0.6},
+                    "fsdp": {"doubled": 1.0}}
+
+        def train(kind, traffic):
+            return [{"pid": 10 + r, "launches":
+                     cs.parallel_expected_launches(kind),
+                     "losses": [6.0, 5.5, 5.0], "moments_sharded": True,
+                     "traffic": traffic, "params_bytes": 1000,
+                     **({"param_errs": [4e-2], "param_move_errs": [0.1],
+                         "grad_errs": [1e-2, 2e-2],
+                         "grad_control_errs": controls[kind]}
+                        if r == 0 else {})}
+                    for r in range(cs.PAR_RANKS)]
+
+        def pp(kind):
+            return [{"launches": cs.parallel_expected_launches(kind),
+                     "grad_errs": [1e-2], "loss": 1.0, "ref_loss": 1.0}
+                    for _ in range(cs.PAR_RANKS)]
+
+        return {
+            "tp": train("tp", {"all_reduce": {"bytes": tp_bytes}}),
+            "fsdp": train("fsdp", {op: {"bytes": n}
+                                   for op, n in fsdp.items()}),
+            "ulysses": [{"launches": cs.parallel_expected_launches(
+                "ulysses"), "out_err": 0.0, "grad_errs": [0.0] * 3}] * 2,
+            "ring": [{"out_err": 5e-3}] * 2,
+            "moe": [{"y_err": 4e-3, "aux": 1.0, "ref_aux": 1.0,
+                     "grad_errs": [4e-3] * 4}] * 2,
+            "gpipe": pp("gpipe"), "1f1b": pp("1f1b")}
+
+    def test_checks_accept(self):
+        checks = cs.parallel_checks(self._rows(), [6.0, 5.5, 5.0], 1)
+        assert checks and all(checks.values()), checks
+
+    @pytest.mark.parametrize("path,key,value,failed", [
+        ("tp", "launches", {"flash_fwd": 71, "flash_bwd_dq": 36,
+                            "flash_bwd_dkv": 36}, "tp_launches"),
+        ("fsdp", "pid", 1, "fsdp_other_processes"),
+        ("tp", "losses", [6.0, 5.5, 5.2], "tp_losses"),
+        ("fsdp", "traffic", {"all_gather": {"bytes": 1},
+                             "reduce_scatter": {"bytes": 3000},
+                             "all_reduce": {"bytes": 12}}, "fsdp_bytes"),
+        ("tp", "traffic", {"all_reduce": {"bytes": 1}}, "tp_bytes"),
+        ("ulysses", "grad_errs", [0.0, 0.5, 0.0], "ulysses_grads"),
+        ("moe", "aux", 1.1, "moe_aux"),
+        ("gpipe", "grad_errs", [0.2], "gpipe_grads"),
+        ("1f1b", "launches", {"flash_fwd": 24, "flash_bwd_dq": 24,
+                              "flash_bwd_dkv": 24}, "1f1b_launches"),
+    ])
+    def test_checks_reject(self, path, key, value, failed):
+        rows = self._rows()
+        rows[path] = [dict(r) for r in rows[path]]
+        rows[path][-1][key] = value
+        if key == "losses":
+            rows[path][0][key] = value
+        checks = cs.parallel_checks(rows, [6.0, 5.5, 5.0], 1)
+        assert [k for k, ok in checks.items() if not ok] == [failed]
+
+    @pytest.mark.parametrize("kind,key,value,failed", [
+        ("tp", "grad_errs", [1e-2, 0.06], "tp_grads"),
+        ("fsdp", "grad_errs", [0.2], "fsdp_grads"),
+        # a planted fault the band would let through
+        ("tp", "grad_control_errs", {"doubled": 1.0,
+                                     "wqkv_contiguous_blocks": 1.4,
+                                     "f_sums_dropped": 0.04},
+         "tp_grad_controls_rejected"),
+        # a control that was not read
+        ("tp", "grad_control_errs", {"doubled": 1.0},
+         "tp_grad_controls_rejected"),
+        ("fsdp", "grad_control_errs", {"doubled": 0.01},
+         "fsdp_grad_controls_rejected"),
+    ])
+    def test_grad_band_and_controls_reject(self, kind, key, value, failed):
+        rows = self._rows()
+        rows[kind][0][key] = value
+        checks = cs.parallel_checks(rows, [6.0, 5.5, 5.0], 1)
+        assert [k for k, ok in checks.items() if not ok] == [failed]
+
+    def test_contiguous_wqkv_order(self):
+        # 2 heads of 1 column each for q, k and v; tp=2: rank r holds
+        # column r of each, so the blocks side by side read q0 k0 v0 q1
+        # k1 v1.
+        w = torch.arange(6.0).reshape(1, 6)   # [q0 q1 | k0 k1 | v0 v1]
+        assert cs.contiguous_wqkv(w, 2).tolist() == [[0, 2, 4, 1, 3, 5]]
+        assert torch.equal(cs.contiguous_wqkv(w, 1), w)
+
+    def test_first_grads_optimizer_keeps_the_first_step(self):
+        store = []
+        p = torch.nn.Parameter(torch.ones(3))
+        opt = cs.first_grads_optimizer(store)([p])
+        for scale in (2.0, 5.0):
+            opt.zero_grad()
+            (scale * p).sum().backward()
+            opt.step()
+        assert len(store) == 1 and store[0].tolist() == [2.0] * 3
+
+    def test_param_band_rejects(self):
+        rows = self._rows()
+        rows["fsdp"][0]["param_move_errs"] = [0.1, 0.3]
+        checks = cs.parallel_checks(rows, [6.0, 5.5, 5.0], 1)
+        assert [k for k, ok in checks.items() if not ok] == ["fsdp_params"]

@@ -378,12 +378,19 @@ class TestMoE:
         assert max(errs) <= 2e-5, errs
 
     def test_expert_parallel_raises(self):
+        # Expert parallelism runs inside shard_map (tests/
+        # test_torch_parallel.py holds it against JAX's); outside one the
+        # axis name is unbound and raises NameError, as in JAX.
         x, gate = torch.zeros(8, 4), torch.zeros(4, 2)
         w1, w2 = torch.zeros(2, 4, 6), torch.zeros(2, 6, 4)
-        with pytest.raises(NotImplementedError, match="expert-parallel"):
+        with pytest.raises(NameError, match="unbound axis name"):
             tpmoe.moe_layer(x, gate, w1, w2, axis_name="ep")
-        with pytest.raises(NotImplementedError, match="expert"):
-            tmoe.MoEConfig(ep_axis="ep")
+        cfg = dataclasses.replace(tmoe.MoEConfig.tiny(), ep_axis="ep",
+                                  dtype=torch.float32)
+        params = tmoe.moe_init(cfg, torch.Generator().manual_seed(0), "cpu")
+        with pytest.raises(NameError, match="unbound axis name"):
+            tmoe.moe_forward(params, torch.zeros(1, 4, dtype=torch.long),
+                             cfg)
 
 
 # ---------------------------------------------------------------------------

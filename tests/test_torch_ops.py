@@ -411,6 +411,10 @@ class TestIsolation:
             "import ray_tpu_torch.models.convert\n"
             "import ray_tpu_torch.models._training\n"
             "import ray_tpu_torch.parallel, ray_tpu_torch.parallel.moe\n"
+            "import ray_tpu_torch.parallel.ops, ray_tpu_torch.parallel.sequence\n"
+            "import ray_tpu_torch.parallel.pipeline\n"
+            "import ray_tpu_torch.parallel.launch\n"
+            "import ray_tpu_torch.parallel.dryrun\n"
             "import ray_tpu_torch.models.llama, ray_tpu_torch.models.vit\n"
             "import ray_tpu_torch.models.moe, ray_tpu_torch.models.resnet\n"
             "print('\\n'.join(sys.modules))\n")
@@ -420,7 +424,11 @@ class TestIsolation:
         assert "ray_tpu_torch.llm" in out
         assert {"ray_tpu_torch.parallel.moe", "ray_tpu_torch.models.llama",
                 "ray_tpu_torch.models.vit", "ray_tpu_torch.models.moe",
-                "ray_tpu_torch.models.resnet"} <= set(out)
+                "ray_tpu_torch.models.resnet", "ray_tpu_torch.parallel.ops",
+                "ray_tpu_torch.parallel.sequence",
+                "ray_tpu_torch.parallel.pipeline",
+                "ray_tpu_torch.parallel.launch",
+                "ray_tpu_torch.parallel.dryrun"} <= set(out)
         assert [m for m in out if _forbidden(m)] == []
 
     def test_device_plumbing_import_leaves_jax_and_ray_tpu_out(self,

@@ -90,7 +90,10 @@ def _dp_loop(config):
     dist.all_gather(starts, flat0)
     raised = {}
     for name, mc in (("tp", MeshConfig(dp=1, tp=2)),
-                     ("fsdp", MeshConfig(dp=1, fsdp=2))):
+                     ("fsdp", MeshConfig(dp=1, fsdp=2)),
+                     ("pp", MeshConfig(dp=1, pp=2)),
+                     ("sp", MeshConfig(dp=1, sp=2)),
+                     ("ep", MeshConfig(dp=1, ep=2))):
         try:
             make_train_step(cfg, device="cpu", mesh=make_mesh(mc),
                             rules=tp_rules())
@@ -204,10 +207,16 @@ class TestDataParallelGPT:
         assert max(errs) == 0.0
         assert set(state["opt_state"]) == {"state", "param_groups"}
 
-    @pytest.mark.parametrize("axis", ["tp", "fsdp"])
+    @pytest.mark.parametrize("axis", ["tp", "fsdp", "pp", "sp", "ep"])
     def test_other_axes_raise(self, dp_run, axis):
+        # tp and fsdp meshes run in the step since the parallel strategies
+        # were ported; pipeline, sequence and expert parallelism run
+        # through their own functions, and the step raises for them.
         msg = dp_run["result"].metrics["raised"][axis]
-        assert msg is not None and "Queue 1 item 5" in msg, msg
+        if axis in ("tp", "fsdp"):
+            assert msg is None, msg
+        else:
+            assert msg is not None and "ROADMAP.md" in msg, msg
 
 
 class TestTorchTrainer:
