@@ -64,7 +64,8 @@ phase:
                     an actor, put/get of 64 MB; a 64 MB bf16 CUDA tensor
                     put by the driver and read back as an equal CPU
                     tensor by the driver and by a task that sees no card
-                    (put and get timed); after shutdown the
+                    (put and get timed), and a CUDA tensor nested in a
+                    dict read by that task as a CPU tensor; after shutdown the
                     head's own session and store directories
                     ($TMPDIR/rtt_sessions/*, /dev/shm/rtt_<tag>_*) are gone
   9. serve_llm      build_llm_app(GPT-2 small) under the port's Serve,
@@ -166,7 +167,25 @@ phase:
                     at 224: images/s; f32 logits of 4 images card vs CPU,
                     and the same with TF32 convolutions, which the band
                     must reject
- 21. kernels        one entry per kernel: launches on each main path
+ 21. rllib          the port's RLlib on its own control plane: PPO with
+                    the Catalog's default CNN (5 convs 16-256, 2304 ->
+                    256, 1.29M params) on 84x84x4 frames of a numpy
+                    env with 6 actions, the learner on the card and 2
+                    zero-GPU runners of 256 steps, 3 iterations of 16
+                    updates (minibatch 128): ms per update, the shares
+                    of sampling and learning, env steps/s; after each
+                    weight sync (and one sync of the learner's CUDA
+                    params themselves) the runners' value predictions
+                    against the driver's forward on the same weights;
+                    the gradients of one 128-frame minibatch card vs CPU
+                    (f32, no TF32) within TOL_RLLIB_GRADS, and two
+                    planted layout faults outside it; then one
+                    iteration each of recurrent PPO (LSTM 128),
+                    MultiAgentPPO (2 policies), IMPALA, APPO, DQN with
+                    prioritized replay, BC and MARWIL on a numpy
+                    CartPole; every loss finite, every learner's params
+                    on the card, and no K1-K3 launch
+ 22. kernels        one entry per kernel: launches on each main path
                     (the processor's counted in its pool actor, the
                     Train workers' in their processes, the fused DAG's
                     replays by its own count), error,
@@ -1308,7 +1327,8 @@ def phase_runtime():
     """The port's control plane on the card's machine: init with the GPU
     declared, a task, an actor, put/get of 64 MB; a 64 MB bf16 CUDA
     tensor put by the driver, read back as an equal CPU tensor by a task
-    that sees no card and by the driver; after shutdown no session or
+    that sees no card and by the driver, and a CUDA tensor nested in a
+    dict read by that task as a CPU tensor; after shutdown no session or
     store directory of the copy is left."""
     import numpy as np
     import torch
@@ -1356,6 +1376,14 @@ def phase_runtime():
             return (os.environ.get("CUDA_VISIBLE_DEVICES"),
                     torch.cuda.is_available(), type(t).__name__, t)
 
+        @rt.remote
+        def read_nested_without_gpu(d):
+            import torch
+            t = d["t"]
+            return (os.environ.get("CUDA_VISIBLE_DEVICES"),
+                    torch.cuda.is_available(), type(t).__name__,
+                    str(t.device), t)
+
         gen = torch.Generator(device="cuda").manual_seed(0)
         cuda_t = torch.randn(32 << 20, device="cuda", generator=gen,
                              dtype=torch.bfloat16)  # 64 MB
@@ -1369,15 +1397,14 @@ def phase_runtime():
         visible, task_cuda, task_type, from_task = rt.get(
             read_without_gpu.remote(ref), timeout=120)
         host_t = cuda_t.cpu()
-        # A tensor nested in a container keeps torch's pickling (as a
-        # nested jax.Array keeps jax's): recorded, not required.
-        try:
-            rt.get(read_without_gpu.remote({"t": cuda_t[:4]}), timeout=120)
-            nested = "read"
-        except rt.exceptions.TaskError as e:
-            nested = "TaskError: " + next(
-                (line.strip() for line in str(e).splitlines()
-                 if line.startswith("RuntimeError")), str(e)[:200])
+        # A tensor nested in a container (a dict of weights, as RLlib
+        # syncs them to its runners) is brought to host by the pickler
+        # too: the task without a card reads a CPU tensor.
+        n_visible, n_cuda, n_type, n_device, n_t = rt.get(
+            read_nested_without_gpu.remote({"t": cuda_t[:4]}), timeout=120)
+        nested = {"cuda_visible_devices": n_visible, "cuda_available": n_cuda,
+                  "type": n_type, "device": n_device,
+                  "equal": torch.equal(n_t, host_t[:4])}
         tensor_rows = {
             "driver": {"device": str(from_store.device),
                        "dtype": str(from_store.dtype),
@@ -1388,7 +1415,7 @@ def phase_runtime():
                               "device": str(from_task.device),
                               "dtype": str(from_task.dtype),
                               "equal": torch.equal(from_task, host_t)}}
-        del ref, from_store, from_task, cuda_t, host_t
+        del ref, from_store, from_task, n_t, cuda_t, host_t
         during = copy_dirs(node)
     finally:
         rt.shutdown()
@@ -1406,6 +1433,9 @@ def phase_runtime():
                           False, "type": "Tensor", "device": "cpu",
                           "dtype": "torch.bfloat16", "equal": True}},
         f"a CUDA tensor through the store: {tensor_rows}")
+    check(nested == {"cuda_visible_devices": "", "cuda_available": False,
+                     "type": "Tensor", "device": "cpu", "equal": True},
+          f"a CUDA tensor nested in a dict, read without a card: {nested}")
     check(resources.get("GPU") == 1.0, f"GPU not declared: {resources}")
     check(task == 42, f"task returned {task}")
     check([n for n, _ in bumps] == [1, 2, 3]
@@ -3316,6 +3346,472 @@ def phase_parallel() -> dict:
             "pp_train_ranks": summed(["gpipe", "1f1b"])}
 
 
+# The rllib phase: the port's RLlib on its own control plane. The card's
+# host has no gymnasium and no ALE, so the environments are written here
+# in numpy, with spaces that carry what the port reads of them.
+class Box:
+    """An observation or action space of float32 arrays (gymnasium's
+    Box, as far as the port reads it)."""
+
+    def __init__(self, low, high, shape):
+        import numpy as np
+
+        self.shape = tuple(shape)
+        self.low = np.full(self.shape, low, np.float32)
+        self.high = np.full(self.shape, high, np.float32)
+        self.dtype = np.float32
+
+
+class Discrete:
+    """n actions, 0 .. n-1 (gymnasium's Discrete)."""
+
+    def __init__(self, n: int):
+        self.n, self.shape = int(n), ()
+
+
+# The Atari frame-stack observation, 6 actions (Pong's and Breakout's
+# action sets have 6 and 4): the Catalog builds its default CNN for it.
+PIXEL_SHAPE, PIXEL_ACTIONS, PIXEL_EPISODE = (84, 84, 4), 6, 64
+
+
+class PixelEnv:
+    """(84, 84, 4) float32 frames in [0, 1] from a seeded numpy stream:
+    dim noise, and one bright 12 x 12 patch whose place names the
+    rewarded action (reward 1 for that action, else 0). The episode ends
+    after 64 steps. A policy learns it only if the pixels reach it
+    through the convolutions in the right layout."""
+
+    def __init__(self, config=None):
+        import numpy as np
+
+        self.observation_space = Box(0.0, 1.0, PIXEL_SHAPE)
+        self.action_space = Discrete(PIXEL_ACTIONS)
+        self._rng = np.random.default_rng(0)
+        self._t, self._target = 0, 0
+
+    def _frame(self):
+        import numpy as np
+
+        self._target = int(self._rng.integers(PIXEL_ACTIONS))
+        frame = self._rng.random(PIXEL_SHAPE, np.float32) * np.float32(0.3)
+        row, col = 8 + 40 * (self._target // 3), 6 + 26 * (self._target % 3)
+        frame[row:row + 12, col:col + 12, :] = 1.0
+        return frame
+
+    def reset(self, *, seed=None, options=None):
+        import numpy as np
+
+        if seed is not None:
+            self._rng = np.random.default_rng(seed)
+        self._t = 0
+        return self._frame(), {}
+
+    def step(self, action):
+        reward = 1.0 if int(action) == self._target else 0.0
+        self._t += 1
+        return self._frame(), reward, self._t >= PIXEL_EPISODE, False, {}
+
+    def close(self):
+        pass
+
+
+class CartPoleEnv:
+    """CartPole-v1's dynamics (gymnasium's classic_control/cartpole.py:
+    Euler steps of 0.02 s, force 10 N, pole half-length 0.5 m), in numpy:
+    reward 1 a step, terminated past 12 degrees or 2.4 m, truncated at
+    500 steps."""
+
+    GRAVITY, CART, POLE, HALF_LEN, FORCE, TAU = 9.8, 1.0, 0.1, 0.5, 10.0, 0.02
+    THETA_LIMIT, X_LIMIT, MAX_STEPS = 12 * 2 * math.pi / 360, 2.4, 500
+
+    def __init__(self, config=None):
+        import numpy as np
+
+        self.observation_space = Box(-np.inf, np.inf, (4,))
+        self.action_space = Discrete(2)
+        self._rng = np.random.default_rng(0)
+        self._state = np.zeros(4)
+        self._t = 0
+
+    def reset(self, *, seed=None, options=None):
+        import numpy as np
+
+        if seed is not None:
+            self._rng = np.random.default_rng(seed)
+        self._state = self._rng.uniform(-0.05, 0.05, 4)
+        self._t = 0
+        return self._state.astype(np.float32), {}
+
+    def step(self, action):
+        import numpy as np
+
+        x, x_dot, theta, theta_dot = self._state
+        force = self.FORCE if int(action) == 1 else -self.FORCE
+        cos, sin = math.cos(theta), math.sin(theta)
+        total = self.CART + self.POLE
+        pole_ml = self.POLE * self.HALF_LEN
+        temp = (force + pole_ml * theta_dot ** 2 * sin) / total
+        theta_acc = (self.GRAVITY * sin - cos * temp) / (
+            self.HALF_LEN * (4.0 / 3.0 - self.POLE * cos ** 2 / total))
+        x_acc = temp - pole_ml * theta_acc * cos / total
+        x, x_dot = x + self.TAU * x_dot, x_dot + self.TAU * x_acc
+        theta = theta + self.TAU * theta_dot
+        theta_dot = theta_dot + self.TAU * theta_acc
+        self._state = np.array([x, x_dot, theta, theta_dot])
+        self._t += 1
+        terminated = bool(abs(x) > self.X_LIMIT
+                          or abs(theta) > self.THETA_LIMIT)
+        truncated = self._t >= self.MAX_STEPS and not terminated
+        return (self._state.astype(np.float32), 1.0, terminated, truncated,
+                {})
+
+    def close(self):
+        pass
+
+
+class TwoCartPoles:
+    """A multi-agent env: agents "a0" and "a1", each on a CartPoleEnv of
+    its own; the episode ends for both when either pole falls."""
+
+    possible_agents = ["a0", "a1"]
+
+    def __init__(self, config=None):
+        self._envs = {a: CartPoleEnv() for a in self.possible_agents}
+        self.observation_spaces = {a: e.observation_space
+                                   for a, e in self._envs.items()}
+        self.action_spaces = {a: e.action_space
+                              for a, e in self._envs.items()}
+
+    def reset(self, seed=None):
+        return ({a: e.reset(seed=None if seed is None else seed + i)[0]
+                 for i, (a, e) in enumerate(self._envs.items())}, {})
+
+    def step(self, actions):
+        out = {a: self._envs[a].step(act) for a, act in actions.items()}
+        terms = {a: o[2] for a, o in out.items()}
+        truncs = {a: o[3] for a, o in out.items()}
+        terms["__all__"] = any(terms.values())
+        truncs["__all__"] = any(truncs.values())
+        return ({a: o[0] for a, o in out.items()},
+                {a: o[1] for a, o in out.items()}, terms, truncs, {})
+
+    def close(self):
+        pass
+
+
+def policy_of(agent_id: str) -> str:
+    """TwoCartPoles' agent "a<i>" -> policy "p<i>"."""
+    return "p" + agent_id[1:]
+
+
+# The CNN PPO run: the repo's PPO defaults (minibatch 128, 4 epochs) on 2
+# runners of 256 steps, so 16 learner updates an iteration, 3 iterations.
+RLLIB_RUNNERS, RLLIB_FRAGMENT, RLLIB_ITERS, RLLIB_MINIBATCH = 2, 256, 3, 128
+# Gradients of one CNN PPO minibatch (128 frames), card vs CPU from the
+# same weights, f32 with no TF32, each leaf over its max|cpu|: the same
+# products summed in other orders (cuDNN's convolution algorithms against
+# the CPU's) through 5 convolutions and 2 dense layers, ~1e-6 relative in
+# each sum; but a pre-activation within rounding of 0 takes the other
+# side of a relu on the other device, and drops or adds that unit's
+# whole contribution for the frame. f32 against f64 on the CPU reads up
+# to 7.2e-3 for some weights (tests/test_torch_chip_smoke.py::
+# TestRllibPhase); the card against the CPU read 3.7e-6 and 1.3e-3. The
+# two planted faults (flatten in NCHW order; the odd SAME pixel padded
+# before instead of after) move the gradients by O(1) (0.89 and above),
+# and must fall outside the band.
+TOL_RLLIB_GRADS = 2e-2
+# A runner's value predictions against the driver's forward on the same
+# host weights, both on the CPU.
+TOL_RLLIB_SYNC = 1e-5
+
+
+def grad_errs(grads, ref) -> dict:
+    """Per leaf (dotted path): max |grads - ref| / max |ref|."""
+    from ray_tpu_torch.rllib.core.rl_module import _flat
+
+    ref = {k: r.detach().cpu() for k, r in _flat(ref).items()}
+    return {k: float((g.detach().cpu() - ref[k]).abs().max()
+                     / ref[k].abs().max().clamp(min=1e-30))
+            for k, g in _flat(grads).items()}
+
+
+def plant_fault(module, fault: str):
+    """``module`` (a PPOModule over images) with a planted layout fault in
+    its CNN: "nchw_flatten" flattens the conv features in C·H·W order
+    (torch's own, not flax's H·W·C), "pads_before" puts the odd pixel of
+    each asymmetric SAME pad before instead of after."""
+    enc = module.net.encoder
+    if fault == "nchw_flatten":
+        enc.flatten = lambda x: x.reshape(x.shape[0], -1)
+    elif fault == "pads_before":
+        enc.pads = [(b, a, d, c) for a, b, c, d in enc.pads]
+    else:
+        raise ValueError(fault)
+    return module
+
+
+def rllib_minibatch(frags, gamma: float, size: int):
+    """The first ``size`` rows of the GAE'd fragments, as PPO's learner
+    gets a minibatch (no bootstrap: the fragments' ends count as cut)."""
+    import numpy as np
+
+    from ray_tpu_torch.rllib.algorithms.ppo import compute_gae
+
+    frags = [compute_gae(f, gamma) for f in frags]
+    keys = ("obs", "actions", "action_logp", "advantages", "value_targets")
+    return {k: np.concatenate([f[k] for f in frags])[:size] for k in keys}
+
+
+def time_calls(obj, name: str, log: list, keep: list = None) -> None:
+    """Wrap ``obj.name`` so that each call's host seconds go to ``log``
+    (and, with ``keep``, its result to ``keep``)."""
+    fn = getattr(obj, name)
+
+    def timed(*args, **kwargs):
+        t0 = time.perf_counter()
+        out = fn(*args, **kwargs)
+        log.append(time.perf_counter() - t0)
+        if keep is not None:
+            keep.append(out)
+        return out
+
+    setattr(obj, name, timed)
+
+
+def finite_losses(stats: dict) -> bool:
+    losses = [v for k, v in stats.items() if "loss" in k]
+    return bool(losses) and all(math.isfinite(v) for v in losses)
+
+
+def on_card(params) -> bool:
+    from ray_tpu_torch._tree import tree_leaves
+
+    return all(t.is_cuda for t in tree_leaves(params))
+
+
+def runner_sync_err(algo, steps: int = 4) -> float:
+    """The runners' value predictions on a fresh sample against the
+    driver's forward on the learner's host weights: how far the weights
+    the runners sample with are from the learner's."""
+    import numpy as np
+    import torch
+
+    weights = algo.learner.get_weights()
+    errs = []
+    for frag in algo.env_runner_group.sample(steps):
+        with torch.no_grad():
+            _, values = algo.module.apply(weights, frag["obs"])
+        ref = values.numpy()
+        errs.append(float(np.abs(frag["vf_preds"] - ref).max()
+                          / max(float(np.abs(ref).max()), 1e-30)))
+    return max(errs)
+
+
+def rllib_cartpole_paths() -> dict:
+    """One iteration of each other path on CartPoleEnv, the learner on the
+    card and one zero-GPU runner: recurrent PPO (LSTM, cell 128, chunks
+    of 20), MultiAgentPPO with 2 policies, IMPALA, APPO, DQN with
+    prioritized replay; then BC and MARWIL from a SampleWriter dataset
+    of the recurrent PPO run's samples."""
+    from ray_tpu_torch.rllib import (APPOConfig, BCConfig, DQNConfig,
+                                     IMPALAConfig, MARWILConfig,
+                                     MultiAgentPPOConfig, PPOConfig,
+                                     SampleWriter)
+
+    rows, kept = {}, []
+
+    def run(name, config, keep_samples=False):
+        t0 = time.perf_counter()
+        algo = config.learners(device=None).debugging(seed=0).build()
+        try:
+            build_s = time.perf_counter() - t0
+            if keep_samples:
+                time_calls(algo.env_runner_group, "sample", [], kept)
+            t0 = time.perf_counter()
+            result = algo.train()
+            train_s = time.perf_counter() - t0
+            if algo.learner is None:  # MultiAgentPPO: a learner a policy
+                learners = list(algo.learners.values())
+                stats = {f"{mid}/{k}": v for mid in algo.learners
+                         for k, v in result[mid].items()}
+            else:
+                learners, stats = [algo.learner], result
+            rows[name] = {
+                "build_s": build_s, "iteration_s": train_s,
+                "steps": result["num_env_steps_sampled_lifetime"],
+                "losses": {k: v for k, v in stats.items() if "loss" in k},
+                "finite": finite_losses(stats),
+                "on_card": all(on_card(ln.params) for ln in learners)}
+        finally:
+            algo.stop()
+
+    def cartpole(config):
+        return config.environment(CartPoleEnv).env_runners(
+            num_env_runners=1, rollout_fragment_length=RLLIB_FRAGMENT)
+
+    run("recurrent_ppo", cartpole(PPOConfig()).training(model={
+        "use_lstm": True, "lstm_cell_size": 128, "max_seq_len": 20}),
+        keep_samples=True)
+    run("multi_agent_ppo", MultiAgentPPOConfig().environment(TwoCartPoles)
+        .env_runners(num_env_runners=1,
+                     rollout_fragment_length=RLLIB_FRAGMENT)
+        .multi_agent(policies={"p0": None, "p1": None},
+                     policy_mapping_fn=policy_of))
+    run("impala", cartpole(IMPALAConfig()))
+    run("appo", cartpole(APPOConfig()))
+    run("dqn_per", cartpole(DQNConfig()).training(
+        prioritized_replay=True, learning_starts=64))
+    writer = SampleWriter()
+    for frag in kept[0]:
+        writer.write(frag)
+    dataset = writer.to_dataset()
+    for name, config in (("bc", BCConfig()), ("marwil", MARWILConfig())):
+        run(name, config.environment(CartPoleEnv).training(
+            offline_data=dataset))
+    return rows
+
+
+def phase_rllib():
+    """The port's RLlib on its own control plane (ray_tpu_torch.init with
+    4 CPUs and the GPU): PPO with the Catalog's default CNN at the Atari
+    frame-stack shape, the learner on the card and 2 zero-GPU runners, 3
+    iterations; the runners' samples after each weight sync against the
+    driver's forward, and once after a sync of the learner's CUDA params
+    themselves (nested CUDA tensors read without a card); one update's
+    gradients card vs CPU with the two planted faults; then one iteration
+    of each other path on CartPoleEnv. No K1-K3 launch is expected:
+    nothing in RLlib reaches flash_attention."""
+    import torch
+
+    import ray_tpu_torch as rt
+    from ray_tpu_torch._tree import tree_leaves
+    from ray_tpu_torch.ops import _kernels
+    from ray_tpu_torch.rllib import PPOConfig, PPOModule, TorchLearner
+
+    t_phase = time.perf_counter()
+    reset_launches()
+    rt.init(num_cpus=4, num_gpus=1)
+    try:
+        t0 = time.perf_counter()
+        algo = (PPOConfig().environment(PixelEnv)
+                .env_runners(num_env_runners=RLLIB_RUNNERS,
+                             rollout_fragment_length=RLLIB_FRAGMENT)
+                .training(minibatch_size=RLLIB_MINIBATCH, num_epochs=4)
+                .learners(device=None).debugging(seed=0).build())
+        build_s = time.perf_counter() - t0
+        sample_s, update_s, frags, iters = [], [], [], []
+        try:
+            time_calls(algo.env_runner_group, "sample", sample_s, frags)
+            time_calls(algo.learner, "update", update_s)
+            for _ in range(RLLIB_ITERS):
+                n_samples, n_updates = len(sample_s), len(update_s)
+                t0 = time.perf_counter()
+                result = algo.train()
+                wall = time.perf_counter() - t0
+                sampled, learned = sample_s[n_samples], sum(
+                    update_s[n_updates:])
+                last_frags = frags[n_samples]
+                iters.append({
+                    "iteration_s": wall, "sample_s": sampled,
+                    "learn_s": learned, "sample_share": sampled / wall,
+                    "learn_share": learned / wall,
+                    "updates": len(update_s) - n_updates,
+                    "env_steps": RLLIB_RUNNERS * RLLIB_FRAGMENT,
+                    "env_steps_per_s": RLLIB_RUNNERS * RLLIB_FRAGMENT / wall,
+                    "losses": {k: v for k, v in result.items()
+                               if "loss" in k},
+                    "episode_return_mean": result["episode_return_mean"],
+                    "finite": finite_losses(result),
+                    # the runners sample again after the sync train()
+                    # ended with
+                    "runner_sync_err": runner_sync_err(algo)})
+            # The learner's own CUDA params, nested in a dict, to the
+            # zero-GPU runners: each reads CPU tensors.
+            algo.env_runner_group.sync_weights(algo.learner.params)
+            cuda_sync_err = runner_sync_err(algo)
+            algo.env_runner_group.sync_weights(algo.learner.get_weights())
+            learner_on_card = on_card(algo.learner.params)
+
+            # One update card vs CPU on a fixed minibatch of 128 frames.
+            batch = rllib_minibatch(last_frags, algo.config.gamma,
+                                    RLLIB_MINIBATCH)
+            weights = algo.learner.get_weights()
+            loss_fn = algo.learner.loss_fn
+
+            def learner_on(device, fault=None):
+                module = PPOModule(PIXEL_SHAPE, PIXEL_ACTIONS)
+                if fault:
+                    plant_fault(module, fault)
+                ln = TorchLearner(module, loss_fn, device=device)
+                ln.set_weights(weights)
+                return ln
+
+            cpu = learner_on("cpu")
+            cpu_loss, _, cpu_grads = cpu.compute_gradients(batch)
+            card = learner_on(None)
+            card_loss, _, card_grads = card.compute_gradients(batch)
+            errs = grad_errs(card_grads, cpu_grads)
+            faults = {}
+            for fault in ("nchw_flatten", "pads_before"):
+                _, _, g = learner_on(None, fault).compute_gradients(batch)
+                faults[fault] = max(grad_errs(g, cpu_grads).values())
+            card.apply_gradients(card_grads)
+            cpu.apply_gradients(cpu_grads)
+            param_errs = grad_errs(card.params, cpu.params)
+            # The update alone, on the card: the median of 20 after 3.
+            for _ in range(3):
+                card.update(batch)
+            times = []
+            for _ in range(20):
+                t0 = time.perf_counter()
+                card.update(batch)
+                times.append(time.perf_counter() - t0)
+            n_params = sum(t.numel() for t in
+                           tree_leaves(algo.learner.params))
+        finally:
+            algo.stop()
+        ppo_s = time.perf_counter() - t_phase
+        paths = rllib_cartpole_paths()
+    finally:
+        rt.shutdown()
+    launches = dict(_kernels.LAUNCHES)
+    phase_s = time.perf_counter() - t_phase
+    emit("rllib_ppo_cnn", obs_shape=list(PIXEL_SHAPE),
+         actions=PIXEL_ACTIONS, params=n_params,
+         conv_filters=[list(f) for f in algo.module.net.encoder.filters],
+         runners=RLLIB_RUNNERS, fragment=RLLIB_FRAGMENT,
+         minibatch=RLLIB_MINIBATCH, build_s=build_s, iterations=iters,
+         update_ms_median=statistics.median(update_s) * 1e3,
+         update_ms_min=min(update_s) * 1e3,
+         fixed_batch_update_ms_median=statistics.median(times) * 1e3,
+         learner_on_card=learner_on_card, cuda_sync_err=cuda_sync_err,
+         sync_tol=TOL_RLLIB_SYNC, phase_ppo_s=ppo_s)
+    emit("rllib_vs_cpu", frames=RLLIB_MINIBATCH, dtype="float32",
+         loss_card=card_loss.item(), loss_cpu=cpu_loss.item(),
+         max_grad_err=max(errs.values()), grad_errs=errs,
+         tol=TOL_RLLIB_GRADS, planted_fault_errs=faults,
+         post_adam_param_errs_max=max(param_errs.values()))
+    emit("rllib", paths=paths, launches=launches, phase_s=phase_s)
+    check(learner_on_card, "the PPO learner's params are not on the card")
+    check(all(it["finite"] for it in iters), f"PPO losses: {iters}")
+    check(all(it["updates"] == 16 for it in iters),
+          f"updates per iteration: {[it['updates'] for it in iters]}")
+    check(all(it["runner_sync_err"] <= TOL_RLLIB_SYNC for it in iters)
+          and cuda_sync_err <= TOL_RLLIB_SYNC,
+          f"runners sample with other weights than the learner's: "
+          f"{[it['runner_sync_err'] for it in iters]}, {cuda_sync_err}")
+    check(max(errs.values()) <= TOL_RLLIB_GRADS,
+          f"CNN PPO gradients card vs CPU: {errs}")
+    check(all(e > TOL_RLLIB_GRADS for e in faults.values()),
+          f"the band {TOL_RLLIB_GRADS} passes a planted fault: {faults}")
+    bad = {k: r for k, r in paths.items()
+           if not (r["finite"] and r["on_card"])}
+    check(not bad, f"rllib paths failed: {bad}")
+    check(set(launches.values()) == {0},
+          f"RLlib launched attention kernels: {launches}")
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     import torch
 
@@ -3351,6 +3847,7 @@ def main() -> int:
     vit = phase_vit()
     moe = phase_moe()
     phase_resnet()
+    phase_rllib()
 
     # Launches on each main path, each counted over exactly its run:
     # the batch serving slice, its 8 greedy steps as CUDA-graph replays

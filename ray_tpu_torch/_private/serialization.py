@@ -22,6 +22,7 @@ reference (src/ray/object_manager/plasma/).
 from __future__ import annotations
 
 import contextlib
+import io
 import pickle
 import struct
 import threading
@@ -97,16 +98,18 @@ def _tensor_from_host(array, dtype: str, requires_grad: bool):
 
 
 def _to_host(obj: Any) -> Any:
-    """Bring a top-level torch.Tensor on any device to host memory before
-    pickling (counterpart of the JAX package's device-array landing).
+    """Bring a torch.Tensor on any device to host memory before pickling
+    (counterpart of the JAX package's device-array landing).
 
     The host object store holds CPU bytes: a CUDA tensor is copied to the
     host here, so a reader that sees no card (a worker pinned to no GPU)
     gets it back, as a CPU tensor of the same dtype and shape. A CPU
     tensor goes as a zero-copy numpy view of its storage (contiguous
     ones; others are made contiguous first), so the put path's one copy
-    lands its bytes in the reserved segment. Tensors nested in a
-    container keep torch's own pickling.
+    lands its bytes in the reserved segment. Any other value comes back
+    as it is (a container too): ``_Pickler`` calls this on every object
+    it meets, so a tensor nested in a container (a dict of weights) is
+    brought to host the same way.
 
     Only consult torch if it is ALREADY imported: a value cannot be a
     tensor otherwise, and lean workers boot without it. Another thread
@@ -128,6 +131,20 @@ def _to_host(obj: Any) -> Any:
         array = t.view(getattr(torch, _INT_OF_SIZE[t.element_size()])
                        ).numpy()
     return _HostTensor(array, dtype, obj.requires_grad)
+
+
+class _Pickler(cloudpickle.Pickler):
+    """cloudpickle, with every torch.Tensor it meets brought to host by
+    ``_to_host``: at the top, or nested in a container or an object's
+    state. A CUDA tensor inside a dict then reaches a reader without a
+    card as a CPU tensor, as a nested jax.Array reaches one as a host
+    array in the JAX package."""
+
+    def reducer_override(self, obj):
+        host = _to_host(obj)
+        if host is not obj:
+            return host.__reduce__()
+        return super().reducer_override(obj)
 
 
 class SerializedObject:
@@ -307,9 +324,9 @@ def serialize(obj: Any) -> SerializedObject:
         buffers.append(pb.raw())
         return False  # out-of-band
 
-    obj = _to_host(obj)
-    meta = cloudpickle.dumps(obj, protocol=5, buffer_callback=_cb)
-    return SerializedObject(meta, buffers)
+    out = io.BytesIO()
+    _Pickler(out, protocol=5, buffer_callback=_cb).dump(obj)
+    return SerializedObject(out.getvalue(), buffers)
 
 
 def deserialize(src: memoryview | bytes) -> Any:

@@ -335,13 +335,20 @@ def _validate_runtime_env(runtime_env):
     return re_mod.validate(runtime_env)
 
 
+def _reject_num_tpus(opts: Dict) -> None:
+    """The port's nodes declare GPUs and no TPU: a task or actor that
+    asked for one would wait forever for a node that has it."""
+    if opts.get("num_tpus"):
+        raise ValueError(
+            f"num_tpus={opts['num_tpus']!r}: ray_tpu_torch schedules "
+            f"GPUs, and no node declares a TPU; ask for num_gpus instead")
+
+
 def _build_resources(opts: Dict, default_num_cpus: float = 1) -> Dict[str, float]:
+    _reject_num_tpus(opts)
     res = dict(opts.get("resources") or {})
     num_cpus = opts.get("num_cpus")
     res["CPU"] = float(default_num_cpus if num_cpus is None else num_cpus)
-    num_tpus = opts.get("num_tpus")
-    if num_tpus:
-        res["TPU"] = float(num_tpus)
     if opts.get("num_gpus"):
         res["GPU"] = float(opts["num_gpus"])
     if opts.get("accelerator_type"):
@@ -750,6 +757,7 @@ class ActorClass:
     def __init__(self, cls, options: Optional[Dict] = None):
         self._cls = cls
         self._opts = dict(options or {})
+        _reject_num_tpus(self._opts)
         self._cls_id = (f"{getattr(cls, '__module__', 'm')}."
                         f"{getattr(cls, '__qualname__', 'C')}:"
                         f"{uuid.uuid4().hex[:16]}")
@@ -778,6 +786,7 @@ class ActorClass:
         ac = ActorClass.__new__(ActorClass)
         ac._cls = self._cls
         ac._opts = {**self._opts, **overrides}
+        _reject_num_tpus(ac._opts)
         ac._cls_id = self._cls_id
         ac._blob = self._blob
         ac._method_meta = self._method_meta
@@ -852,8 +861,9 @@ class ActorClass:
 # the @remote decorator
 # ---------------------------------------------------------------------------
 def remote(*args, **options):
-    """@remote / @remote(num_cpus=..., num_tpus=..., ...) for functions and
-    classes (reference: worker.py ray.remote)."""
+    """@remote / @remote(num_cpus=..., num_gpus=..., ...) for functions and
+    classes (reference: worker.py ray.remote). A non-zero ``num_tpus``
+    raises ValueError here: the port's nodes declare GPUs."""
     if len(args) == 1 and not options and callable(args[0]):
         target = args[0]
         if inspect.isclass(target):

@@ -1,13 +1,13 @@
 """ray_tpu_torch.data: distributed datasets (Data-equivalent).
 
 Reference parity (SURVEY.md §2.5 Ray Data): lazy block-based Datasets,
-map_batches over task or TPU-actor pools, distributed shuffle/sort/
+map_batches over task or GPU-actor pools, distributed shuffle/sort/
 groupby, iter_batches/streaming_split feeding trainers.
 
     import ray_tpu_torch.data as rd
 
     ds = rd.range(10_000).map_batches(preprocess)
-    preds = ds.map_batches(Predictor, concurrency=2, num_tpus=1)
+    preds = ds.map_batches(Predictor, concurrency=2, num_gpus=1)
 """
 
 from .block import Block  # noqa: F401

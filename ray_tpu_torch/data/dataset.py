@@ -9,9 +9,9 @@ equivalent of the reference's streaming executor, with its operator fusion
 replaced by stage-chaining inside tasks where possible.
 
 Blocks are dict-of-numpy columns in the shm object store (block.py), so a
-`map_batches(num_tpus=1)` predictor reads its batch zero-copy and feeds
-jax directly — the reference's GPU actor-pool inference path
-(operators/actor_pool_map_operator.py:34) on TPU terms.
+`map_batches(num_gpus=1)` predictor reads its batch zero-copy and feeds
+its card directly — the reference's GPU actor-pool inference path
+(operators/actor_pool_map_operator.py:34).
 """
 
 from __future__ import annotations
@@ -621,19 +621,24 @@ class Dataset:
         without it the actor sees no card).
 
         `max_concurrency` (actor classes only) lets N applies interleave
-        on one actor: with jax's async dispatch, batch N+1's host->device
-        upload overlaps batch N's compute + result fetch, which is what
-        saturates a bandwidth-bound device feed (upload becomes the only
-        serial term). Default 1 — two concurrent jax computations on one
-        pinned chip can contend for HBM, so opting in is explicit."""
+        on one actor: with CUDA's asynchronous launches, batch N+1's
+        host->device upload overlaps batch N's compute + result fetch,
+        which is what saturates a bandwidth-bound device feed (upload
+        becomes the only serial term). Default 1 — two concurrent
+        computations on one pinned card can contend for its memory, so
+        opting in is explicit. ``num_tpus`` raises ValueError: the port's
+        nodes declare GPUs."""
         fn_kwargs = fn_kwargs or {}
         fn_constructor_kwargs = fn_constructor_kwargs or {}
         is_class = isinstance(fn, type)
         opts: Dict[str, Any] = {}
         if num_cpus is not None:
             opts["num_cpus"] = num_cpus
-        if num_tpus is not None:
-            opts["num_tpus"] = num_tpus
+        if num_tpus:
+            raise ValueError(
+                f"map_batches(num_tpus={num_tpus!r}): ray_tpu_torch "
+                f"schedules GPUs, and no node declares a TPU; pass "
+                f"num_gpus instead")
         if num_gpus is not None and num_gpus > 0:
             opts["num_gpus"] = num_gpus
         if max_concurrency is not None and is_class:

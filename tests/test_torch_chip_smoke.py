@@ -977,3 +977,141 @@ class TestParallelPhase:
         rows["fsdp"][0]["param_move_errs"] = [0.1, 0.3]
         checks = cs.parallel_checks(rows, [6.0, 5.5, 5.0], 1)
         assert [k for k, ok in checks.items() if not ok] == ["fsdp_params"]
+
+
+class TestRllibPhase:
+    """The rllib phase's environments (the card's host has no gymnasium)
+    and its card-vs-CPU gradient band with the planted faults."""
+
+    def test_pixel_env(self):
+        import numpy as np
+
+        env = cs.PixelEnv()
+        obs, info = env.reset(seed=3)
+        assert obs.shape == cs.PIXEL_SHAPE == env.observation_space.shape
+        assert obs.dtype == np.float32 and info == {}
+        assert 0.0 <= obs.min() and obs.max() <= 1.0
+        assert env.action_space.n == cs.PIXEL_ACTIONS
+        again, _ = cs.PixelEnv().reset(seed=3)
+        np.testing.assert_array_equal(obs, again)
+        rewards = []
+        for t in range(cs.PIXEL_EPISODE):
+            target = env._target
+            # the bright patch sits where the rewarded action says
+            patch = obs[:, :, 0] == 1.0
+            rows, cols = np.nonzero(patch)
+            assert patch.sum() == 144
+            assert (rows.min() - 8) // 40 * 3 + (cols.min() - 6) // 26 \
+                == target
+            obs, reward, term, trunc, _ = env.step(target if t % 2 else
+                                                   (target + 1) % 6)
+            rewards.append(reward)
+            assert term == (t == cs.PIXEL_EPISODE - 1) and not trunc
+        assert rewards == [0.0, 1.0] * (cs.PIXEL_EPISODE // 2)
+
+    def test_cartpole_follows_gymnasium(self):
+        import gymnasium as gym
+        import numpy as np
+
+        ours, theirs = cs.CartPoleEnv(), gym.make("CartPole-v1").unwrapped
+        obs, _ = ours.reset(seed=5)
+        theirs.reset(seed=0)
+        theirs.state = obs.astype(np.float64)
+        ours._state = obs.astype(np.float64)
+        rng = np.random.default_rng(0)
+        for t in range(500):
+            action = int(rng.integers(2))
+            a = ours.step(action)
+            b = theirs.step(action)
+            np.testing.assert_allclose(a[0], b[0], rtol=1e-6, atol=1e-6)
+            assert (a[1], a[2]) == (b[1], b[2])
+            if a[2]:
+                break
+        assert a[2] and t > 5
+
+    def test_cartpole_truncates_at_500(self):
+        env = cs.CartPoleEnv()
+        env.reset(seed=0)
+        env._t = cs.CartPoleEnv.MAX_STEPS - 1
+        env._state[:] = 0.0
+        _, _, term, trunc, _ = env.step(0)
+        assert (term, trunc) == (False, True)
+
+    def test_two_cartpoles(self):
+        env = cs.TwoCartPoles()
+        obs, _ = env.reset(seed=1)
+        assert sorted(obs) == env.possible_agents == ["a0", "a1"]
+        assert [cs.policy_of(a) for a in obs] == ["p0", "p1"]
+        while True:
+            obs, rew, term, trunc, _ = env.step({"a0": 0, "a1": 1})
+            assert rew == {"a0": 1.0, "a1": 1.0}
+            if term["__all__"]:
+                break
+            assert not any(term.values())
+        assert term["__all__"] == (term["a0"] or term["a1"])
+
+    @pytest.fixture(scope="class")
+    def pixel_grads(self):
+        import numpy as np
+
+        from ray_tpu_torch.rllib import PPOModule, TorchLearner
+        from ray_tpu_torch.rllib.algorithms.ppo import make_ppo_loss
+
+        n = cs.RLLIB_MINIBATCH
+        env = cs.PixelEnv()
+        frames = [env.reset(seed=0)[0]] + [env.step(0)[0]
+                                           for _ in range(n + 1)]
+        rng = np.random.default_rng(0)
+        frag = {"obs": np.stack(frames), "actions": rng.integers(0, 6, n + 2),
+                "action_logp": np.full(n + 2, -1.8, np.float32),
+                "rewards": rng.random(n + 2).astype(np.float32),
+                "vf_preds": rng.random(n + 2).astype(np.float32),
+                "terminateds": np.zeros(n + 2, bool),
+                "truncateds": np.zeros(n + 2, bool)}
+        batch = cs.rllib_minibatch([frag], 0.99, n)
+        assert {k: v.shape[0] for k, v in batch.items()} == dict.fromkeys(
+            ("obs", "actions", "action_logp", "advantages",
+             "value_targets"), n)
+
+        def grads(fault=None, seed=0, dtype=torch.float32):
+            """The PPO loss's gradients on ``batch`` at the weights drawn
+            from ``seed``, in ``dtype``, with a planted ``fault``."""
+            from ray_tpu_torch._tree import tree_leaves, tree_unflatten
+            from ray_tpu_torch.rllib.core.rl_module import apply_net
+
+            module = PPOModule(cs.PIXEL_SHAPE, 6)
+            if fault:
+                cs.plant_fault(module, fault)
+            params = module.init_params(seed)  # drawn in f32, then cast
+            net = module.net.to(dtype)
+            params = tree_unflatten(params, [
+                t.to(dtype).requires_grad_() for t in tree_leaves(params)])
+            host = {k: torch.as_tensor(v) for k, v in batch.items()}
+            host = {k: v.to(dtype) if v.is_floating_point() else v
+                    for k, v in host.items()}
+            shim = type("Shim", (), {"apply": staticmethod(
+                lambda p, obs: apply_net(net, p, obs))})
+            loss, _ = make_ppo_loss()(params, shim, host)
+            return tree_unflatten(params, torch.autograd.grad(
+                loss, tree_leaves(params)))
+
+        return grads
+
+    @pytest.mark.parametrize("seed", [0, 1, 2, 3])
+    def test_gradient_band_admits_f32_rounding(self, pixel_grads, seed):
+        # f32 against f64 on the CPU: rounding alone, relu flips
+        # included, stays inside the band that holds the card to the CPU
+        # (seed 0 reads 7.2e-3, the others 2.6e-4 or less).
+        errs = cs.grad_errs(pixel_grads(seed=seed),
+                            pixel_grads(seed=seed, dtype=torch.float64))
+        assert len(errs) == 16 and max(errs.values()) <= cs.TOL_RLLIB_GRADS
+
+    @pytest.mark.parametrize("fault", ["nchw_flatten", "pads_before"])
+    def test_gradient_band_rejects_planted_faults(self, pixel_grads, fault):
+        errs = cs.grad_errs(pixel_grads(fault), pixel_grads())
+        assert max(errs.values()) > 10 * cs.TOL_RLLIB_GRADS
+
+    def test_finite_losses(self):
+        assert cs.finite_losses({"total_loss": 1.0, "epsilon": float("nan")})
+        assert not cs.finite_losses({"vf_loss": float("inf")})
+        assert not cs.finite_losses({"epsilon": 0.5})

@@ -24,9 +24,11 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = os.path.join(REPO, "ray_tpu_torch")
 REF = os.path.join(REPO, "ray_tpu")
 
-# The copied control plane, by subpackage (module files under the port).
+# The copied control plane and the JAX-free parts of RLlib, by subpackage
+# (module files under the port).
 COPIED = ("api.py", "exceptions.py", "_private", "_native", "util", "dag",
-          "serve", "data", "train")
+          "serve", "data", "train", "rllib/utils", "rllib/connectors",
+          "rllib/offline")
 # Keys of the reference's TPU detection that the port's GPU detection
 # replaces (``_private/resources.py``): RAY_TPU_<name> -> its RTT_ key,
 # or None where the port has no counterpart (GCE metadata serves TPU VMs).

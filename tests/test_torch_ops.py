@@ -386,7 +386,7 @@ class TestKernelWrapper:
             assert "sm_90a" in head
 
 
-_FORBIDDEN = ("jax", "ml_dtypes", "ray_tpu")
+_FORBIDDEN = ("jax", "ml_dtypes", "ray_tpu", "flax", "optax")
 
 
 def _forbidden(module: str) -> bool:
@@ -399,6 +399,7 @@ class TestIsolation:
     def test_forbidden_matches_exact_names_only(self):
         assert _forbidden("ray_tpu") and _forbidden("ray_tpu.ops")
         assert _forbidden("jax.numpy") and _forbidden("ml_dtypes")
+        assert _forbidden("flax.linen") and _forbidden("optax")
         assert not _forbidden("ray_tpu_torch")
         assert not _forbidden("ray_tpu_torch.ops")
         assert not _forbidden("jaxtyping")
@@ -429,6 +430,26 @@ class TestIsolation:
                 "ray_tpu_torch.parallel.pipeline",
                 "ray_tpu_torch.parallel.launch",
                 "ray_tpu_torch.parallel.dryrun"} <= set(out)
+        assert [m for m in out if _forbidden(m)] == []
+
+    def test_rllib_import_leaves_jax_and_ray_tpu_out(self):
+        # The RLlib port (modules, learner, algorithms, runners, offline
+        # IO) reaches neither jax, flax and optax nor ray_tpu.
+        code = (
+            "import sys\n"
+            "import ray_tpu_torch.rllib\n"
+            "import ray_tpu_torch.rllib.core.convert\n"
+            "import ray_tpu_torch.rllib.utils.schedules\n"
+            "import ray_tpu_torch.rllib.utils.self_play\n"
+            "print('\\n'.join(sys.modules))\n")
+        out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                             capture_output=True, text=True, timeout=120,
+                             check=True).stdout.split()
+        assert {"ray_tpu_torch.rllib.core.learner",
+                "ray_tpu_torch.rllib.algorithms.ppo",
+                "ray_tpu_torch.rllib.algorithms.impala",
+                "ray_tpu_torch.rllib.env.env_runner",
+                "ray_tpu_torch.rllib.offline"} <= set(out)
         assert [m for m in out if _forbidden(m)] == []
 
     def test_device_plumbing_import_leaves_jax_and_ray_tpu_out(self,

@@ -200,3 +200,34 @@ class TestDataRequestsGPUs:
         cpu = build_processor(ProcessorConfig(device="cpu"))
         assert [s.num_gpus for s in card.stages] == [0, 1, 0]
         assert [s.num_gpus for s in cpu.stages] == [0, 0, 0]
+
+
+class TestNumTpusRaises:
+    """The port's nodes declare GPUs and no TPU: ``num_tpus`` raises at
+    once, naming ``num_gpus``, where the copy of ``ray_tpu``'s control
+    plane used to turn it into a resource that no node has."""
+
+    def add(self, x):
+        return x + 1
+
+    @pytest.mark.parametrize("how", ["decorator", "options"])
+    @pytest.mark.parametrize("kind", ["function", "actor"])
+    def test_remote(self, kind, how):
+        target = self.add if kind == "function" else Probe
+        with pytest.raises(ValueError, match="num_gpus"):
+            if how == "decorator":
+                rt.remote(num_tpus=1)(target)
+            else:
+                rt.remote(target).options(num_tpus=1)
+
+    def test_zero_is_no_request(self):
+        from ray_tpu_torch.api import RemoteFunction
+
+        assert isinstance(rt.remote(num_tpus=0)(self.add), RemoteFunction)
+
+    def test_map_batches(self, cluster):
+        from ray_tpu_torch import data
+
+        ds = data.from_items([{"x": 1}])
+        with pytest.raises(ValueError, match="num_gpus"):
+            ds.map_batches(Probe, concurrency=1, num_tpus=1)

@@ -120,14 +120,53 @@ def test_grad_flag_and_zero_dim_survive():
 
 
 def test_nested_tensors_keep_torchs_pickling():
-    # As nested jax arrays keep jax's in the JAX package: only a
-    # top-level tensor is brought to host.
+    # _to_host leaves a container as it is: the pickler brings each
+    # tensor it meets inside to host (test_nested_tensors_go_to_host).
     value = {"t": torch.arange(6).reshape(2, 3), "n": [torch.ones(2)]}
     assert serialization._to_host(value) is value
     back = serialization.deserialize(
         serialization.serialize(value).to_bytes())
     assert torch.equal(back["t"], value["t"])
     assert torch.equal(back["n"][0], value["n"][0])
+
+
+@pytest.mark.parametrize("kind", ["float32", "bfloat16", "int64",
+                                  "non-contiguous"])
+def test_nested_tensors_go_to_host(kind):
+    # Each tensor nested in a container goes out of band as a top-level
+    # one does, so a CUDA tensor in a dict of weights reaches a reader
+    # without a card as a CPU tensor.
+    _, tensor, _ = _values(kind, 300)
+    value = {"w": tensor, "rest": [tensor[:2], {"b": tensor[1]}], "n": 3}
+    sobj = serialization.serialize(value)
+    assert len(sobj.buffers) == 3
+    back = serialization.deserialize(sobj.to_bytes())
+    for got, want in ((back["w"], tensor), (back["rest"][0], tensor[:2]),
+                      (back["rest"][1]["b"], tensor[1])):
+        assert type(got) is torch.Tensor and got.device.type == "cpu"
+        assert got.dtype == want.dtype and torch.equal(got, want)
+    assert back["n"] == 3
+
+
+@pytest.mark.parametrize("kind", ["float32", "bfloat16"])
+def test_nested_tensors_match_nested_jax_arrays(clusters, kind):
+    # The same values nested in the same dict through both packages'
+    # stores and a task of each: equal values. A nested jax.Array is
+    # rebuilt on the reader's default device (jax's own pickling), a
+    # nested tensor on the CPU.
+    _, tensor, array = _values(kind, 20000)
+
+    def describe(value):
+        w = value["w"]
+        return type(w).__module__.split(".")[0], np.asarray(
+            w.float() if hasattr(w, "float") else w.astype(np.float32))
+
+    ours = rt.get(rt.remote(describe).remote(rt.put({"w": tensor})),
+                  timeout=TIMEOUT)
+    theirs = ray_tpu.get(ray_tpu.remote(describe).remote(
+        ray_tpu.put({"w": array})), timeout=TIMEOUT)
+    assert (ours[0], theirs[0]) == ("torch", "jaxlib")
+    np.testing.assert_array_equal(ours[1], theirs[1])
 
 
 def test_to_host_does_not_import_torch():
