@@ -10,7 +10,8 @@ sm_90a), holds each kernel against its plain PyTorch version on the card,
 drives the port's serving paths (in process, and hosted by the port's own
 control plane: Serve's build_llm_app and Data's Processor) and its train
 steps at full width (GPT-2 small, the llama bench shape, ViT-B/16, the MoE
-decoder) and the ResNet-50 predictor, and prints one JSON line per
+decoder), the ResNet-50 predictor and RLlib (PPO, SAC, TD3, CQL,
+DreamerV3 and the rest), and prints one JSON line per
 phase:
 
   1. device         the card (nvidia-smi name and power limit), torch, CUDA
@@ -167,7 +168,8 @@ phase:
                     at 224: images/s; f32 logits of 4 images card vs CPU,
                     and the same with TF32 convolutions, which the band
                     must reject
- 21. rllib          the port's RLlib on its own control plane: PPO with
+ 21. rllib          the port's RLlib on its own control plane (one
+                    cluster for this and the next two): PPO with
                     the Catalog's default CNN (5 convs 16-256, 2304 ->
                     256, 1.29M params) on 84x84x4 frames of a numpy
                     env with 6 actions, the learner on the card and 2
@@ -185,6 +187,31 @@ phase:
                     prioritized replay, BC and MARWIL on a numpy
                     CartPole; every loss finite, every learner's params
                     on the card, and no K1-K3 launch
+     rllib_offpolicy  SAC and TD3 on a numpy Pendulum-v1 (the configs'
+                    batch of 256 and (64, 64) width, 13,636 params), the
+                    learner on the card and 1 zero-GPU runner of 200
+                    steps, learning_starts 256, 3 iterations of 16
+                    updates; then CQL for an iteration from a
+                    SampleWriter dataset of SAC's samples: ms per update
+                    (each ended by a synchronize), the shares of sampling
+                    and learning; card vs CPU on one batch with the same
+                    weights and noise (SAC's and CQL's gradients, CQL's
+                    penalty's own, TD3's params after two steps in Adam
+                    steps) within their bands, and a planted fault each
+                    outside them; no K1-K3 launch
+     dreamer        DreamerV3 at the JAX package's default width (256
+                    deterministic, 8 x 8 categoricals, hidden 256, CNN
+                    depth 16, 41 bins, 8 sequences of 16, horizon 15;
+                    2,351,124 params) on 64x64x3 frames of a numpy env
+                    with 6 actions, the learner on the card and 1
+                    zero-GPU runner of 64 steps, learning_starts cut to
+                    128 so that 2 of 3 iterations train: update ms
+                    (median, min), its share of the iteration, the
+                    losses, the runner's seconds a step; one update's
+                    world-model, actor and critic gradients card vs CPU
+                    within TOL_DREAMER_GRADS, the categorical samples
+                    that flip between them, and three planted faults
+                    outside the band; no K1-K3 launch
  22. kernels        one entry per kernel: launches on each main path
                     (the processor's counted in its pool actor, the
                     Train workers' in their processes, the fused DAG's
@@ -919,6 +946,7 @@ def profile_device(fn, phase: str, what: str):
     busy_ms = sum(us for us, _, _ in kernels) / 1e3
     emit(phase, what=what,
          wall_ms_profiled=wall * 1e3, device_busy_ms=busy_ms,
+         kernel_launches=sum(n for _, _, n in kernels),
          device_idle_share=(1 - busy_ms / (wall * 1e3)) if kernels else None,
          groups_ms={g: us / 1e3 for g, us in sorted(
              groups.items(), key=lambda kv: -kv[1])},
@@ -3504,6 +3532,139 @@ def policy_of(agent_id: str) -> str:
     return "p" + agent_id[1:]
 
 
+class PendulumEnv:
+    """Pendulum-v1's dynamics (gymnasium's classic_control/pendulum.py:
+    max speed 8, max torque 2, dt 0.05, g 10, m = l = 1), in numpy: obs
+    [cos θ, sin θ, θ̇], reward -(θ² + 0.1 θ̇² + 0.001 u²) with θ
+    normalized to [-π, π), truncated at 200 steps (gym.make's TimeLimit).
+    Reset draws θ and θ̇ from one seeded generator as gymnasium does."""
+
+    MAX_SPEED, MAX_TORQUE, DT, G, M, L, MAX_STEPS = 8, 2.0, 0.05, 10.0, \
+        1.0, 1.0, 200
+
+    def __init__(self, config=None):
+        import numpy as np
+
+        high = np.array([1.0, 1.0, self.MAX_SPEED], np.float32)
+        self.observation_space = Box(-high, high, (3,))
+        self.action_space = Box(-self.MAX_TORQUE, self.MAX_TORQUE, (1,))
+        self._rng = np.random.default_rng(0)
+        self._state = np.zeros(2)
+        self._t = 0
+
+    def _obs(self):
+        import numpy as np
+
+        theta, theta_dot = self._state
+        return np.array([np.cos(theta), np.sin(theta), theta_dot],
+                        np.float32)
+
+    def reset(self, *, seed=None, options=None):
+        import numpy as np
+
+        if seed is not None:
+            self._rng = np.random.default_rng(seed)
+        high = np.array([np.pi, 1.0])
+        self._state = self._rng.uniform(low=-high, high=high)
+        self._t = 0
+        return self._obs(), {}
+
+    def step(self, action):
+        import numpy as np
+
+        theta, theta_dot = self._state
+        u = np.clip(action, -self.MAX_TORQUE, self.MAX_TORQUE)[0]
+        normalized = ((theta + np.pi) % (2 * np.pi)) - np.pi
+        costs = normalized ** 2 + 0.1 * theta_dot ** 2 + 0.001 * u ** 2
+        theta_dot = theta_dot + (3 * self.G / (2 * self.L) * np.sin(theta)
+                                 + 3.0 / (self.M * self.L ** 2) * u) \
+            * self.DT
+        theta_dot = np.clip(theta_dot, -self.MAX_SPEED, self.MAX_SPEED)
+        self._state = np.array([theta + theta_dot * self.DT, theta_dot])
+        self._t += 1
+        return self._obs(), -costs, False, self._t >= self.MAX_STEPS, {}
+
+    def close(self):
+        pass
+
+
+# DreamerV3's own frame size, 6 actions.
+FRAMES_SHAPE, FRAMES_ACTIONS, FRAMES_EPISODE, FRAMES_CELL = (64, 64, 3), 6, \
+    100, 8
+
+
+class FramesEnv:
+    """(64, 64, 3) float32 frames in [0, 1] (``config["shape"]`` another
+    (H, W, C) of multiples of 8): a grid of 8-pixel cells, the agent lit
+    (1.0) in the first channel and a goal (0.5) in the second (the first
+    if there is one), over dim noise from a seeded stream. Actions 0-3
+    move the agent up, down, left, right (clipped at the edges), 4 and 5
+    hold it. Reaching the goal pays 1 and puts the goal elsewhere; the
+    episode is truncated after 100 steps. The frames follow the actions,
+    so a world model has dynamics to learn."""
+
+    MOVES = ((-1, 0), (1, 0), (0, -1), (0, 1), (0, 0), (0, 0))
+
+    def __init__(self, config=None):
+        import numpy as np
+
+        self.shape = tuple((config or {}).get("shape", FRAMES_SHAPE))
+        self.cells = (self.shape[0] // FRAMES_CELL,
+                      self.shape[1] // FRAMES_CELL)
+        self.observation_space = Box(0.0, 1.0, self.shape)
+        self.action_space = Discrete(FRAMES_ACTIONS)
+        self._rng = np.random.default_rng(0)
+        self._agent, self._goal, self._t = (0, 0), (0, 0), 0
+
+    def _cell(self):
+        return tuple(int(self._rng.integers(0, n)) for n in self.cells)
+
+    def _place_goal(self):
+        while True:
+            goal = self._cell()
+            if goal != self._agent:
+                self._goal = goal
+                return
+
+    def _frame(self):
+        import numpy as np
+
+        frame = self._rng.random(self.shape, np.float32) * np.float32(0.1)
+        goal_channel = min(1, self.shape[2] - 1)
+        for (row, col), channel, value in (
+                (self._goal, goal_channel, 0.5), (self._agent, 0, 1.0)):
+            frame[row * FRAMES_CELL:(row + 1) * FRAMES_CELL,
+                  col * FRAMES_CELL:(col + 1) * FRAMES_CELL,
+                  channel] = value
+        return frame
+
+    def reset(self, *, seed=None, options=None):
+        import numpy as np
+
+        if seed is not None:
+            self._rng = np.random.default_rng(seed)
+        self._agent = self._cell()
+        self._place_goal()
+        self._t = 0
+        return self._frame(), {}
+
+    def step(self, action):
+        last = (self.cells[0] - 1, self.cells[1] - 1)
+        d_row, d_col = self.MOVES[int(action)]
+        self._agent = (min(max(self._agent[0] + d_row, 0), last[0]),
+                       min(max(self._agent[1] + d_col, 0), last[1]))
+        reward = 0.0
+        if self._agent == self._goal:
+            reward = 1.0
+            self._place_goal()
+        self._t += 1
+        return (self._frame(), reward, False, self._t >= FRAMES_EPISODE,
+                {})
+
+    def close(self):
+        pass
+
+
 # The CNN PPO run: the repo's PPO defaults (minibatch 128, 4 epochs) on 2
 # runners of 256 steps, so 16 learner updates an iteration, 3 iterations.
 RLLIB_RUNNERS, RLLIB_FRAGMENT, RLLIB_ITERS, RLLIB_MINIBATCH = 2, 256, 3, 128
@@ -3526,13 +3687,14 @@ TOL_RLLIB_SYNC = 1e-5
 
 
 def grad_errs(grads, ref) -> dict:
-    """Per leaf (dotted path): max |grads - ref| / max |ref|."""
-    from ray_tpu_torch.rllib.core.rl_module import _flat
+    """Per leaf (dotted path) of two trees of dicts and lists:
+    max |grads - ref| / max |ref|."""
+    from ray_tpu_torch._tree import tree_paths
 
-    ref = {k: r.detach().cpu() for k, r in _flat(ref).items()}
+    ref = {k: r.detach().cpu() for k, r in tree_paths(ref).items()}
     return {k: float((g.detach().cpu() - ref[k]).abs().max()
                      / ref[k].abs().max().clamp(min=1e-30))
-            for k, g in _flat(grads).items()}
+            for k, g in tree_paths(grads).items()}
 
 
 def plant_fault(module, fault: str):
@@ -3680,100 +3842,96 @@ def phase_rllib():
     themselves (nested CUDA tensors read without a card); one update's
     gradients card vs CPU with the two planted faults; then one iteration
     of each other path on CartPoleEnv. No K1-K3 launch is expected:
-    nothing in RLlib reaches flash_attention."""
+    nothing in RLlib reaches flash_attention. Runs on the cluster
+    phase_rl starts."""
     import torch
 
-    import ray_tpu_torch as rt
     from ray_tpu_torch._tree import tree_leaves
     from ray_tpu_torch.ops import _kernels
     from ray_tpu_torch.rllib import PPOConfig, PPOModule, TorchLearner
 
     t_phase = time.perf_counter()
     reset_launches()
-    rt.init(num_cpus=4, num_gpus=1)
+    t0 = time.perf_counter()
+    algo = (PPOConfig().environment(PixelEnv)
+            .env_runners(num_env_runners=RLLIB_RUNNERS,
+                         rollout_fragment_length=RLLIB_FRAGMENT)
+            .training(minibatch_size=RLLIB_MINIBATCH, num_epochs=4)
+            .learners(device=None).debugging(seed=0).build())
+    build_s = time.perf_counter() - t0
+    sample_s, update_s, frags, iters = [], [], [], []
     try:
-        t0 = time.perf_counter()
-        algo = (PPOConfig().environment(PixelEnv)
-                .env_runners(num_env_runners=RLLIB_RUNNERS,
-                             rollout_fragment_length=RLLIB_FRAGMENT)
-                .training(minibatch_size=RLLIB_MINIBATCH, num_epochs=4)
-                .learners(device=None).debugging(seed=0).build())
-        build_s = time.perf_counter() - t0
-        sample_s, update_s, frags, iters = [], [], [], []
-        try:
-            time_calls(algo.env_runner_group, "sample", sample_s, frags)
-            time_calls(algo.learner, "update", update_s)
-            for _ in range(RLLIB_ITERS):
-                n_samples, n_updates = len(sample_s), len(update_s)
-                t0 = time.perf_counter()
-                result = algo.train()
-                wall = time.perf_counter() - t0
-                sampled, learned = sample_s[n_samples], sum(
-                    update_s[n_updates:])
-                last_frags = frags[n_samples]
-                iters.append({
-                    "iteration_s": wall, "sample_s": sampled,
-                    "learn_s": learned, "sample_share": sampled / wall,
-                    "learn_share": learned / wall,
-                    "updates": len(update_s) - n_updates,
-                    "env_steps": RLLIB_RUNNERS * RLLIB_FRAGMENT,
-                    "env_steps_per_s": RLLIB_RUNNERS * RLLIB_FRAGMENT / wall,
-                    "losses": {k: v for k, v in result.items()
-                               if "loss" in k},
-                    "episode_return_mean": result["episode_return_mean"],
-                    "finite": finite_losses(result),
-                    # the runners sample again after the sync train()
-                    # ended with
-                    "runner_sync_err": runner_sync_err(algo)})
-            # The learner's own CUDA params, nested in a dict, to the
-            # zero-GPU runners: each reads CPU tensors.
-            algo.env_runner_group.sync_weights(algo.learner.params)
-            cuda_sync_err = runner_sync_err(algo)
-            algo.env_runner_group.sync_weights(algo.learner.get_weights())
-            learner_on_card = on_card(algo.learner.params)
+        time_calls(algo.env_runner_group, "sample", sample_s, frags)
+        time_calls(algo.learner, "update", update_s)
+        for _ in range(RLLIB_ITERS):
+            n_samples, n_updates = len(sample_s), len(update_s)
+            t0 = time.perf_counter()
+            result = algo.train()
+            wall = time.perf_counter() - t0
+            sampled, learned = sample_s[n_samples], sum(
+                update_s[n_updates:])
+            last_frags = frags[n_samples]
+            iters.append({
+                "iteration_s": wall, "sample_s": sampled,
+                "learn_s": learned, "sample_share": sampled / wall,
+                "learn_share": learned / wall,
+                "updates": len(update_s) - n_updates,
+                "env_steps": RLLIB_RUNNERS * RLLIB_FRAGMENT,
+                "env_steps_per_s": RLLIB_RUNNERS * RLLIB_FRAGMENT / wall,
+                "losses": {k: v for k, v in result.items()
+                           if "loss" in k},
+                "episode_return_mean": result["episode_return_mean"],
+                "finite": finite_losses(result),
+                # the runners sample again after the sync train()
+                # ended with
+                "runner_sync_err": runner_sync_err(algo)})
+        # The learner's own CUDA params, nested in a dict, to the
+        # zero-GPU runners: each reads CPU tensors.
+        algo.env_runner_group.sync_weights(algo.learner.params)
+        cuda_sync_err = runner_sync_err(algo)
+        algo.env_runner_group.sync_weights(algo.learner.get_weights())
+        learner_on_card = on_card(algo.learner.params)
 
-            # One update card vs CPU on a fixed minibatch of 128 frames.
-            batch = rllib_minibatch(last_frags, algo.config.gamma,
-                                    RLLIB_MINIBATCH)
-            weights = algo.learner.get_weights()
-            loss_fn = algo.learner.loss_fn
+        # One update card vs CPU on a fixed minibatch of 128 frames.
+        batch = rllib_minibatch(last_frags, algo.config.gamma,
+                                RLLIB_MINIBATCH)
+        weights = algo.learner.get_weights()
+        loss_fn = algo.learner.loss_fn
 
-            def learner_on(device, fault=None):
-                module = PPOModule(PIXEL_SHAPE, PIXEL_ACTIONS)
-                if fault:
-                    plant_fault(module, fault)
-                ln = TorchLearner(module, loss_fn, device=device)
-                ln.set_weights(weights)
-                return ln
+        def learner_on(device, fault=None):
+            module = PPOModule(PIXEL_SHAPE, PIXEL_ACTIONS)
+            if fault:
+                plant_fault(module, fault)
+            ln = TorchLearner(module, loss_fn, device=device)
+            ln.set_weights(weights)
+            return ln
 
-            cpu = learner_on("cpu")
-            cpu_loss, _, cpu_grads = cpu.compute_gradients(batch)
-            card = learner_on(None)
-            card_loss, _, card_grads = card.compute_gradients(batch)
-            errs = grad_errs(card_grads, cpu_grads)
-            faults = {}
-            for fault in ("nchw_flatten", "pads_before"):
-                _, _, g = learner_on(None, fault).compute_gradients(batch)
-                faults[fault] = max(grad_errs(g, cpu_grads).values())
-            card.apply_gradients(card_grads)
-            cpu.apply_gradients(cpu_grads)
-            param_errs = grad_errs(card.params, cpu.params)
-            # The update alone, on the card: the median of 20 after 3.
-            for _ in range(3):
-                card.update(batch)
-            times = []
-            for _ in range(20):
-                t0 = time.perf_counter()
-                card.update(batch)
-                times.append(time.perf_counter() - t0)
-            n_params = sum(t.numel() for t in
-                           tree_leaves(algo.learner.params))
-        finally:
-            algo.stop()
-        ppo_s = time.perf_counter() - t_phase
-        paths = rllib_cartpole_paths()
+        cpu = learner_on("cpu")
+        cpu_loss, _, cpu_grads = cpu.compute_gradients(batch)
+        card = learner_on(None)
+        card_loss, _, card_grads = card.compute_gradients(batch)
+        errs = grad_errs(card_grads, cpu_grads)
+        faults = {}
+        for fault in ("nchw_flatten", "pads_before"):
+            _, _, g = learner_on(None, fault).compute_gradients(batch)
+            faults[fault] = max(grad_errs(g, cpu_grads).values())
+        card.apply_gradients(card_grads)
+        cpu.apply_gradients(cpu_grads)
+        param_errs = grad_errs(card.params, cpu.params)
+        # The update alone, on the card: the median of 20 after 3.
+        for _ in range(3):
+            card.update(batch)
+        times = []
+        for _ in range(20):
+            t0 = time.perf_counter()
+            card.update(batch)
+            times.append(time.perf_counter() - t0)
+        n_params = sum(t.numel() for t in
+                       tree_leaves(algo.learner.params))
     finally:
-        rt.shutdown()
+        algo.stop()
+    ppo_s = time.perf_counter() - t_phase
+    paths = rllib_cartpole_paths()
     launches = dict(_kernels.LAUNCHES)
     phase_s = time.perf_counter() - t_phase
     emit("rllib_ppo_cnn", obs_shape=list(PIXEL_SHAPE),
@@ -3809,6 +3967,560 @@ def phase_rllib():
     check(not bad, f"rllib paths failed: {bad}")
     check(set(launches.values()) == {0},
           f"RLlib launched attention kernels: {launches}")
+    torch.cuda.empty_cache()
+
+# The off-policy and model-based phases: SAC and TD3 on the numpy
+# Pendulum at the configs' own batch (256) and width (64, 64), CQL from
+# SAC's samples, and DreamerV3 at the JAX package's default width on
+# DreamerV3's own 64x64x3 frames.
+OFFPOLICY_ITERS, OFFPOLICY_FRAGMENT, OFFPOLICY_STARTS = 3, 200, 256
+# Gradients of one 256-row batch card vs CPU from the same weights and
+# noise, f32 with no TF32, each leaf over its max|cpu|. The products are
+# tiny (64 wide), but a saturated tanh action leaves SAC's log-Jacobian
+# log(1 - a² + 1e-6) and tanh's backward 1 - a² with two digits: one ulp
+# of tanh between two implementations moved an actor leaf 1.7e-2 of its
+# max on 16 rows (tests/test_torch_rllib_algorithms.py), and f32 against
+# f64 on the CPU reads up to TestOffPolicyPhase's measure on 256 rows.
+# f32 against f64 on the CPU reads up to 3.4e-3 (test_torch_chip_smoke.py::
+# TestOffPolicyPhase). The planted faults (the actor loss's Q call under
+# no_grad; CQL's observations tiled, obs.repeat(n, 1), instead of each
+# repeated n times) move the actor's gradients, or the conservative
+# penalty's own (held beside CQL's whole update: the Bellman term, ~100
+# on Pendulum's rewards, hides the penalty in the sum), by O(1).
+TOL_OFFPOLICY_GRADS = 5e-2
+# TD3's params after two steps on one batch, card vs CPU, in Adam steps
+# (|card - cpu| / lr) over the elements whose first gradient is at least
+# 1e-4 of its leaf's max (a smaller one's first step may take either
+# sign). The planted fault, the actor and its Adam state stepped on the
+# held step, moves every actor element by about one step.
+TOL_TD3_STEPS = 5e-2
+TD3_KEEP = 1e-4
+# DreamerV3 at the JAX package's defaults (dreamerv3.py:120-122, 583-594):
+# 256 deterministic units, 8 x 8 categoricals, hidden 256, cnn_depth 16,
+# 41 bins, sequences of 16, 8 a batch, an imagination horizon of 15.
+DREAMER_WIDTHS = dict(n_deter=256, n_cat=8, n_classes=8, cnn_depth=16,
+                      critic_bins=41, seq_len=16, batch_sequences=8,
+                      horizon=15)
+DREAMER_HIDDEN, DREAMER_ITERS, DREAMER_FRAGMENT, DREAMER_STARTS = 256, 3, \
+    64, 128
+# Its gradients card vs CPU on one batch, same params and noise, each leaf
+# over its max|cpu|, f32 with no TF32: 16 recurrent steps and 15 imagined
+# ones through a GRU, 4 convolutions and 4 transposed ones. A categorical
+# sample whose two best classes lie within rounding of each other may
+# take the other class on the other device, and changes that latent's
+# whole path; such flips are counted beside the band, never absorbed by
+# it. silu, not relu: no unit flips sides. f32 against f64 on the CPU
+# reads up to 1.9e-6 at this width (TestDreamerPhase measures it at a
+# small one). The planted faults (the deconv kernel unflipped; the
+# straight-through term dropped, z = one_hot; the two-hot's bin one too
+# high) move the world model's or the critic's gradients by 0.68 or more.
+TOL_DREAMER_GRADS = 1e-3
+
+
+class TimedUpdate:
+    """An algorithm's update (SACUpdate, TD3Update, DreamerUpdate) whose
+    calls are timed on the host clock, each ended by a synchronize of the
+    card; everything else is the update's own."""
+
+    def __init__(self, update, log: list):
+        self._update, self._log = update, log
+
+    def __getattr__(self, name):
+        return getattr(self._update, name)
+
+    def __call__(self, *args):
+        import torch
+
+        t0 = time.perf_counter()
+        out = self._update(*args)
+        torch.cuda.synchronize()
+        self._log.append(time.perf_counter() - t0)
+        return out
+
+
+def tree_err(grads, ref) -> float:
+    """max |grads - ref| over every leaf / max |ref| over every leaf."""
+    from ray_tpu_torch._tree import tree_paths
+
+    ref = {k: r.detach().cpu() for k, r in tree_paths(ref).items()}
+    scale = max(float(r.abs().max()) for r in ref.values())
+    return max(float((g.detach().cpu() - ref[k]).abs().max())
+               for k, g in tree_paths(grads).items()) / max(scale, 1e-30)
+
+
+def step_errs(params, ref, first_grads, lr: float,
+              keep: float = TD3_KEEP) -> dict:
+    """Per leaf: max |params - ref| / lr, in Adam steps, over the
+    elements whose first gradient is at least ``keep`` of the leaf's
+    max |gradient|."""
+    from ray_tpu_torch._tree import tree_paths
+
+    ref = {k: r.detach().cpu() for k, r in tree_paths(ref).items()}
+    grads = {k: g.detach().cpu()
+             for k, g in tree_paths(first_grads).items()}
+    out = {}
+    for k, p in tree_paths(params).items():
+        g = grads[k].abs()
+        mask = g >= keep * g.max().clamp(min=1e-30)
+        diff = (p.detach().cpu() - ref[k]).abs()[mask]
+        out[k] = float(diff.max() / lr) if diff.numel() else 0.0
+    return out
+
+
+def plant_rl_fault(update, fault: str):
+    """``update`` (on the card) with a planted fault:
+    "actor_q_no_grad" (SAC: the actor loss's Q call under no_grad, which
+    cuts the actor's gradient through the critic), "repeat_tiles" (CQL:
+    the observations tiled, obs.repeat(n, 1), so the reshape to [B, N]
+    pairs each row with another observation's actions),
+    "actor_every_step" (TD3: the actor and its Adam state stepped on the
+    held steps too), "deconv_unflipped" (DreamerV3: the transposed
+    convolutions' kernels not flipped), "no_straight_through" (z =
+    one_hot, no gradient through the sample), "bin_one_high" (the
+    two-hot's bin index without its -1)."""
+    import torch
+
+    if fault == "actor_q_no_grad":
+        held = type(update).actor_q
+
+        def actor_q(params, obs, action):
+            with torch.no_grad():
+                return held(update, params, obs, action)
+
+        update.actor_q = actor_q
+    elif fault == "repeat_tiles":
+        pen = update.critic_penalty
+        pen.repeat = lambda obs: obs.repeat(pen.n, 1)
+    elif fault == "actor_every_step":
+        update.actor_step_due = lambda step: True
+    elif fault == "deconv_unflipped":
+        update.module.deconv_kernel = lambda w: w.permute(2, 3, 0, 1)
+    elif fault == "no_straight_through":
+        update.module.straight_through = lambda one_hot, probs: one_hot
+    elif fault == "bin_one_high":
+        m = update.module
+        m.bin_index = lambda y: torch.searchsorted(m._bins(y), y,
+                                                   right=True)
+    else:
+        raise ValueError(fault)
+    return update
+
+
+def to_device(tree, device):
+    """A tree's tensors on ``device`` (copies)."""
+    from ray_tpu_torch._tree import tree_map
+
+    return tree_map(lambda t, _: t.to(device, copy=True), tree)
+
+
+def off_policy_card_vs_cpu(name: str, algo, batch) -> dict:
+    """One update's gradients (SAC, CQL) or two updates' params (TD3) on
+    the card against the CPU, from the algorithm's weights and one draw
+    of noise, and the same on the card with the planted fault."""
+    import torch
+
+    from ray_tpu_torch.rllib.algorithms.cql import make_cql_penalty
+    from ray_tpu_torch.rllib.algorithms.sac import make_sac_update
+    from ray_tpu_torch.rllib.algorithms.td3 import (TD3Module,
+                                                     make_td3_update)
+    from ray_tpu_torch.rllib.core.learner import device_batch, gradients
+    from ray_tpu_torch.rllib.core.rl_module import SACModule
+
+    cfg, weights = algo.config, algo.get_weights()
+    ex, dims = cfg.extra, (algo.module.obs_dim, algo.module.num_actions)
+
+    def update_on(device):
+        if name == "td3":
+            return make_td3_update(
+                TD3Module(*dims, cfg.hidden), cfg.gamma, cfg.lr,
+                float(ex.get("tau", 0.005)), int(ex.get("policy_delay", 2)),
+                float(ex.get("target_noise", 0.2)),
+                float(ex.get("noise_clip", 0.5)), device=device)
+        module = SACModule(*dims, cfg.hidden)
+        penalty = make_cql_penalty(module, float(ex.get("cql_alpha", 1.0)),
+                                   int(ex.get("n_cql_actions", 8))) \
+            if name == "cql" else None
+        return make_sac_update(module, cfg.gamma, cfg.lr,
+                               float(ex.get("tau", 0.005)),
+                               float(ex.get("target_entropy", -dims[1])),
+                               critic_penalty_fn=penalty, device=device)
+
+    cpu = update_on("cpu")
+    noise = cpu.noise(len(batch["rewards"]),
+                      torch.Generator().manual_seed(1))
+    host = device_batch(batch, torch.device("cpu"))
+
+    def run(update):
+        """SAC: one update's gradients; CQL: those, and its conservative
+        penalty's own gradients. TD3: the params after two updates, and
+        the first one's gradients."""
+        dev = update.device
+        state = update.init_state(params=weights)
+        b, n = to_device(host, dev), to_device(noise, dev)
+        if name == "sac":
+            return update.gradients(state, b, n)[1]
+        if name == "cql":
+            p = state["params"]
+            q1, q2 = update.module.apply_q(p, b["obs"], b["actions"])
+            penalty, _ = update.critic_penalty(p, b, q1, q2, n)
+            return {"update": update.gradients(state, b, n)[1],
+                    "penalty": gradients(penalty, p["q"])}
+        p = state["params"]
+        first = {"q": gradients(update.critic_loss(p["q"], state["target"],
+                                                   b, n), p["q"]),
+                 "actor": gradients(update.actor_loss(p["actor"], p["q"],
+                                                      b), p["actor"])}
+        for _ in range(2):
+            update(state, b, n)
+        return state["params"], first
+
+    fault = {"sac": "actor_q_no_grad", "cql": "repeat_tiles",
+             "td3": "actor_every_step"}[name]
+    cpu_out = run(cpu)
+    card_out = run(update_on(None))
+    bad_out = run(plant_rl_fault(update_on(None), fault))
+    if name == "td3":
+        # In Adam steps, over the elements whose first gradient (the
+        # CPU's) is clear.
+        (cpu_params, first), (card_params, _), (bad_params, _) = \
+            cpu_out, card_out, bad_out
+        errs = step_errs(card_params, cpu_params, first, cfg.lr)
+        fault_errs = step_errs(bad_params, cpu_params, first, cfg.lr)
+        return {"measure": "adam_steps", "tol": TOL_TD3_STEPS,
+                "errs": errs, "max_err": max(errs.values()),
+                "planted_fault": fault,
+                "planted_fault_err": max(fault_errs.values())}
+    if name == "cql":
+        # The penalty's bias gradients cancel to rounding (logsumexp's
+        # weights sum to the data term's 1), so its leaves are taken
+        # over the penalty gradient's largest element, not their own.
+        errs = {**{f"update.{k}": v for k, v in
+                   grad_errs(card_out["update"], cpu_out["update"]).items()},
+                "penalty": tree_err(card_out["penalty"], cpu_out["penalty"])}
+        fault_errs = {"update": max(grad_errs(bad_out["update"],
+                                              cpu_out["update"]).values()),
+                      "penalty": tree_err(bad_out["penalty"],
+                                          cpu_out["penalty"])}
+    else:
+        errs = grad_errs(card_out, cpu_out)
+        fault_errs = grad_errs(bad_out, cpu_out)
+    return {"measure": "grad_of_leaf_max", "tol": TOL_OFFPOLICY_GRADS,
+            "errs": errs, "max_err": max(errs.values()),
+            "planted_fault": fault,
+            "planted_fault_err": max(fault_errs.values())}
+
+
+def off_policy_run(name: str, config) -> dict:
+    """``OFFPOLICY_ITERS`` iterations of SAC or TD3 with the learner on
+    the card: per iteration its seconds, the sampling's, and the
+    updates' (each ended by a synchronize); then the card-vs-CPU
+    check on one batch of its replay."""
+    import numpy as np
+    import torch
+
+    from ray_tpu_torch._tree import tree_leaves
+    from ray_tpu_torch.rllib.algorithms.sac import update_on
+
+    t0 = time.perf_counter()
+    algo = config.learners(device=None).debugging(seed=0).build()
+    build_s = time.perf_counter() - t0
+    sample_s, update_s, frags, iters = [], [], [], []
+    try:
+        time_calls(algo.env_runner_group, "sample", sample_s, frags)
+        algo._update = TimedUpdate(algo._update, update_s)
+        for _ in range(OFFPOLICY_ITERS):
+            n_samples, n_updates = len(sample_s), len(update_s)
+            t0 = time.perf_counter()
+            result = algo.train()
+            wall = time.perf_counter() - t0
+            learned = sum(update_s[n_updates:])
+            iters.append({
+                "iteration_s": wall, "sample_s": sample_s[n_samples],
+                "sample_share": sample_s[n_samples] / wall,
+                "learn_s": learned, "learn_share": learned / wall,
+                "updates": len(update_s) - n_updates,
+                "losses": {k: v for k, v in result.items() if "loss" in k},
+                "finite": finite_losses(result) if result.get("q_loss")
+                is not None else None,
+                "episode_return_mean": result["episode_return_mean"]})
+        on = on_card(algo._state["params"])
+        n_params = sum(t.numel() for t in tree_leaves(algo._state["params"]))
+        profile_device(lambda: (update_on(
+            algo._update._update, algo._state,
+            algo.buffer.sample(algo.config.train_batch_size),
+            algo._generator), torch.cuda.synchronize()),
+            "rllib_offpolicy_profile", f"one {name} update (B=256)")
+        vs_cpu = off_policy_card_vs_cpu(
+            name, algo, algo.buffer.sample(algo.config.train_batch_size))
+        trained = [it for it in iters if it["updates"]]
+        return {"algo": algo, "frags": frags, "row": {
+            "params": n_params, "build_s": build_s, "iterations": iters,
+            "updates": len(update_s),
+            "update_ms_median": statistics.median(update_s) * 1e3
+            if update_s else None,
+            "update_ms_min": min(update_s) * 1e3 if update_s else None,
+            "learner_on_card": on,
+            "finite": bool(trained) and all(it["finite"] for it in trained),
+            "vs_cpu": vs_cpu, "returns_finite": bool(np.isfinite(
+                iters[-1]["episode_return_mean"]))}}
+    except BaseException:
+        algo.stop()
+        raise
+
+
+def phase_rllib_offpolicy() -> None:
+    """SAC and TD3 on PendulumEnv (1 zero-GPU runner of 200 steps, the
+    learner on the card, learning_starts 256, 16 updates of 256 an
+    iteration, 3 iterations), each checked card vs CPU with its planted
+    fault; then CQL for an iteration from a SampleWriter dataset of SAC's
+    samples, checked the same way."""
+    from ray_tpu_torch.ops import _kernels
+    from ray_tpu_torch.rllib import (CQLConfig, SACConfig, SampleWriter,
+                                     TD3Config)
+
+    t_phase = time.perf_counter()
+    reset_launches()
+    rows, kept = {}, []
+    for name, config in (("sac", SACConfig()), ("td3", TD3Config())):
+        config = (config.environment(PendulumEnv)
+                  .env_runners(num_env_runners=1,
+                               rollout_fragment_length=OFFPOLICY_FRAGMENT)
+                  .training(learning_starts=OFFPOLICY_STARTS,
+                            updates_per_iter=16))
+        out = off_policy_run(name, config)
+        try:
+            rows[name] = out["row"]
+            if name == "sac":
+                kept = out["frags"]
+        finally:
+            out["algo"].stop()
+    writer = SampleWriter()
+    for frags in kept:  # each sample() call's fragments, one a runner
+        for frag in frags:
+            writer.write(frag)
+    t0 = time.perf_counter()
+    cql = (CQLConfig().environment(PendulumEnv)
+           .training(offline_data=writer.to_dataset())
+           .learners(device=None).debugging(seed=0).build())
+    build_s = time.perf_counter() - t0
+    update_s = []
+    cql._update = TimedUpdate(cql._update, update_s)
+    t0 = time.perf_counter()
+    result = cql.train()
+    rows["cql"] = {
+        "rows": len(writer), "build_s": build_s,
+        "iteration_s": time.perf_counter() - t0, "updates": len(update_s),
+        "update_ms_median": statistics.median(update_s) * 1e3,
+        "losses": {k: v for k, v in result.items() if "loss" in k
+                   or k == "cql_penalty"},
+        "finite": finite_losses(result),
+        "learner_on_card": on_card(cql._state["params"]),
+        "vs_cpu": off_policy_card_vs_cpu(
+            "cql", cql, next(cql.reader.iter_batches()))}
+    launches = dict(_kernels.LAUNCHES)
+    emit("rllib_offpolicy", env="PendulumEnv (numpy, Pendulum-v1)",
+         paths=rows, launches=launches,
+         phase_s=time.perf_counter() - t_phase)
+    for name, row in rows.items():
+        check(row["learner_on_card"], f"{name}: params not on the card")
+        check(row["finite"], f"{name}: losses not finite: {row}")
+        check(row["updates"] > 0, f"{name}: no update ran")
+        v = row["vs_cpu"]
+        check(v["max_err"] <= v["tol"],
+              f"{name} card vs CPU: {v['max_err']} > {v['tol']}: "
+              f"{v['errs']}")
+        check(v["planted_fault_err"] > v["tol"],
+              f"{name}: the band {v['tol']} passes the planted fault "
+              f"{v['planted_fault']}: {v['planted_fault_err']}")
+    check(rows["sac"]["params"] == 13_636,
+          f"SAC params: {rows['sac']['params']}")
+    check(all(rows[n]["updates"] == 16 * (OFFPOLICY_ITERS - 1)
+              for n in ("sac", "td3")),
+          f"updates: {[rows[n]['updates'] for n in ('sac', 'td3')]}")
+    check(set(launches.values()) == {0},
+          f"RLlib launched attention kernels: {launches}")
+
+
+def categorical_flips(card, cpu, weights, batch, noise) -> dict:
+    """The categorical samples of one batch that differ between the card
+    and the CPU: the posterior's latents, and the imagined actions and
+    latents (each update's imagination from its own posterior)."""
+    import torch
+
+    def samples(update, b, n):
+        m = update.module
+        state = update.init_state(params=weights)
+        wm, actor, _ = update.split(state["params"])
+        with torch.no_grad():
+            _, (hs, zs, _) = update.world_model_loss(wm, b, n)
+            feats, acts, _ = update.imagine(wm, actor, hs, zs, n)
+        cat = lambda z: z.reshape(z.shape[:-1] + (m.n_cat, m.n_classes)) \
+            .argmax(-1).cpu()  # noqa: E731
+        return (cat(zs), acts.cpu(), cat(feats[..., m.n_deter:]))
+
+    ours = samples(card, to_device(batch, card.device),
+                   to_device(noise, card.device))
+    ref = samples(cpu, batch, noise)
+    names = ("posterior_latents", "imagined_actions", "imagined_latents")
+    return {name: {"flips": int((a != b).sum()), "of": int(a.numel())}
+            for name, a, b in zip(names, ours, ref)}
+
+
+def dreamer_card_vs_cpu(algo) -> dict:
+    """One update's gradients on the card against the CPU from the
+    algorithm's weights, one batch of its replay and one draw of noise;
+    the categorical flips between them; and the planted faults."""
+    import torch
+
+    from ray_tpu_torch.rllib.algorithms.dreamerv3 import (
+        DreamerModule, make_dreamer_update)
+
+    weights, cfg = algo.get_weights(), algo.config
+    batch = to_device(algo.sample_batch(), "cpu")
+    m = algo.module
+
+    def update_on(device):
+        module = DreamerModule(m.obs_shape, m.num_actions,
+                               n_deter=m.n_deter, n_cat=m.n_cat,
+                               n_classes=m.n_classes, hidden=m.hidden,
+                               cnn_depth=DREAMER_WIDTHS["cnn_depth"],
+                               n_bins=m.n_bins)
+        return make_dreamer_update(
+            module, horizon=DREAMER_WIDTHS["horizon"], gamma=cfg.gamma,
+            device=device)
+
+    cpu = update_on("cpu")
+    noise = cpu.noise(batch["rewards"].shape[0], batch["rewards"].shape[1],
+                      torch.Generator().manual_seed(2))
+
+    def grads(update):
+        state = update.init_state(params=weights)
+        metrics, g = update.gradients(state, to_device(batch, update.device),
+                                      to_device(noise, update.device))
+        return metrics, g
+
+    cpu_metrics, cpu_grads = grads(cpu)
+    card = update_on(None)
+    card_metrics, card_grads = grads(card)
+    errs = {group: grad_errs(card_grads[group], cpu_grads[group])
+            for group in ("wm", "actor", "critic")}
+    faults = {}
+    for fault in ("deconv_unflipped", "no_straight_through",
+                  "bin_one_high"):
+        _, g = grads(plant_rl_fault(update_on(None), fault))
+        faults[fault] = max(max(grad_errs(g[k], cpu_grads[k]).values())
+                            for k in g)
+    return {"tol": TOL_DREAMER_GRADS,
+            "max_err": {k: max(v.values()) for k, v in errs.items()},
+            "worst_leaves": {k: max(v, key=v.get) for k, v in errs.items()},
+            "flips": categorical_flips(card, cpu, weights, batch, noise),
+            "losses_card": {k: float(v) for k, v in card_metrics.items()
+                            if "loss" in k},
+            "losses_cpu": {k: float(v) for k, v in cpu_metrics.items()
+                           if "loss" in k},
+            "planted_fault_errs": faults}
+
+
+def phase_dreamer() -> None:
+    """DreamerV3 at the JAX package's default width on FramesEnv's 64x64x3
+    frames (6 actions; the conv plan 64 -> 32 -> 16 -> 8 -> 4, depth 16 to
+    128, 2,351,124 params), the learner on the card and 1 zero-GPU runner
+    of 64 steps, learning_starts 128 so that 2 of 3 iterations train (4
+    updates each): update ms (median and min, each ended by a
+    synchronize), its share of the iteration, the losses, the runner's
+    seconds a step; one more update under torch.profiler (device ms by
+    group, launches, idle share); then one update's gradients card vs
+    CPU, the categorical flips, and three planted faults."""
+    import torch
+
+    from ray_tpu_torch._tree import tree_leaves
+    from ray_tpu_torch.ops import _kernels
+    from ray_tpu_torch.rllib import DreamerV3Config
+
+    t_phase = time.perf_counter()
+    reset_launches()
+    t0 = time.perf_counter()
+    algo = (DreamerV3Config().environment(FramesEnv)
+            .env_runners(num_env_runners=1,
+                         rollout_fragment_length=DREAMER_FRAGMENT)
+            .training(learning_starts=DREAMER_STARTS,
+                      model={"hidden": [DREAMER_HIDDEN]}, **DREAMER_WIDTHS)
+            .learners(device=None).debugging(seed=0).build())
+    build_s = time.perf_counter() - t0
+    sample_s, update_s, iters = [], [], []
+    try:
+        time_calls(algo.env_runner_group, "sample", sample_s)
+        algo._update = TimedUpdate(algo._update, update_s)
+        for _ in range(DREAMER_ITERS):
+            n_samples, n_updates = len(sample_s), len(update_s)
+            t0 = time.perf_counter()
+            result = algo.train()
+            wall = time.perf_counter() - t0
+            learned = sum(update_s[n_updates:])
+            iters.append({
+                "iteration_s": wall, "sample_s": sample_s[n_samples],
+                "runner_s_per_step": sample_s[n_samples] / DREAMER_FRAGMENT,
+                "learn_s": learned, "update_share": learned / wall,
+                "updates": len(update_s) - n_updates,
+                "losses": {k: v for k, v in result.items()
+                           if k in ("wm_loss", "actor_loss", "critic_loss",
+                                    "wm_recon", "wm_kl")}})
+        on = on_card(algo._state["params"])
+        n_params = sum(t.numel() for t in tree_leaves(algo._state["params"]))
+        update, batch = algo._update._update, algo.sample_batch()
+        noise = update.noise(*batch["rewards"].shape, algo._generator)
+        profile_device(lambda: (update(algo._state, batch, noise),
+                                torch.cuda.synchronize()),
+                       "dreamer_profile",
+                       "one DreamerV3 update (B=8, L=16, H=15)")
+        vs_cpu = dreamer_card_vs_cpu(algo)
+    finally:
+        algo.stop()
+    launches = dict(_kernels.LAUNCHES)
+    trained = [it for it in iters if it["updates"]]
+    emit("dreamer", obs_shape=list(FRAMES_SHAPE), actions=FRAMES_ACTIONS,
+         params=n_params, conv_shapes=[list(s) for s in
+                                       algo.module.conv_shapes],
+         hidden=DREAMER_HIDDEN, **DREAMER_WIDTHS, build_s=build_s,
+         iterations=iters, updates=len(update_s),
+         update_ms_median=statistics.median(update_s) * 1e3,
+         update_ms_min=min(update_s) * 1e3, learner_on_card=on,
+         vs_cpu=vs_cpu, launches=launches,
+         phase_s=time.perf_counter() - t_phase)
+    check(on, "DreamerV3's params are not on the card")
+    check(n_params == 2_351_124, f"DreamerV3 params: {n_params}")
+    check(len(trained) == 2 and all(it["updates"] == 4 for it in trained),
+          f"DreamerV3 updates per iteration: "
+          f"{[it['updates'] for it in iters]}")
+    check(all(math.isfinite(v) for it in trained
+              for v in it["losses"].values()),
+          f"DreamerV3 losses: {[it['losses'] for it in trained]}")
+    worst = max(vs_cpu["max_err"].values())
+    check(worst <= TOL_DREAMER_GRADS,
+          f"DreamerV3 gradients card vs CPU: {vs_cpu['max_err']} "
+          f"(flips {vs_cpu['flips']})")
+    check(all(e > TOL_DREAMER_GRADS
+              for e in vs_cpu["planted_fault_errs"].values()),
+          f"the band {TOL_DREAMER_GRADS} passes a planted fault: "
+          f"{vs_cpu['planted_fault_errs']}")
+    check(set(launches.values()) == {0},
+          f"DreamerV3 launched attention kernels: {launches}")
+
+
+def phase_rl() -> None:
+    """The RLlib phases on one cluster of the port (4 CPUs, the GPU):
+    rllib, rllib_offpolicy, dreamer."""
+    import torch
+
+    import ray_tpu_torch as rt
+
+    rt.init(num_cpus=4, num_gpus=1)
+    try:
+        phase_rllib()
+        phase_rllib_offpolicy()
+        phase_dreamer()
+    finally:
+        rt.shutdown()
     torch.cuda.empty_cache()
 
 
@@ -3847,7 +4559,7 @@ def main() -> int:
     vit = phase_vit()
     moe = phase_moe()
     phase_resnet()
-    phase_rllib()
+    phase_rl()
 
     # Launches on each main path, each counted over exactly its run:
     # the batch serving slice, its 8 greedy steps as CUDA-graph replays

@@ -3,7 +3,7 @@ else) at the leaves, walked in one order by every helper here."""
 
 from __future__ import annotations
 
-from typing import Any, Callable, Iterable, Optional
+from typing import Any, Callable, Dict, Iterable, Optional
 
 
 def tree_map(fn: Callable[[Any, Optional[str]], Any], node: Any,
@@ -24,6 +24,23 @@ def tree_leaves(node: Any) -> list:
     if isinstance(node, (list, tuple)):
         return [t for v in node for t in tree_leaves(v)]
     return [node]
+
+
+def tree_paths(node: Any, prefix: str = "") -> Dict[str, Any]:
+    """The leaves of a tree by dotted path ("actor.encoder.Dense_0.bias",
+    "decoder.deconvs.0.w"): trees of the same params may hold their dict
+    entries in other orders (a flax tree's, torch's), their paths not."""
+    if isinstance(node, dict):
+        items: Iterable = node.items()
+    elif isinstance(node, (list, tuple)):
+        items = enumerate(node)
+    else:
+        return {prefix: node}
+    out: Dict[str, Any] = {}
+    for key, value in items:
+        out.update(tree_paths(value, f"{prefix}.{key}" if prefix
+                              else str(key)))
+    return out
 
 
 def tree_unflatten(tree: Any, leaves: Iterable) -> Any:

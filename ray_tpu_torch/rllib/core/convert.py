@@ -11,7 +11,14 @@ at the leaves:
   "hf", "hg", "ho": {"kernel", "bias"}}`` -> ``{"weight_ih": (4H, in),
   "weight_hh": (4H, H), "bias_hh": (4H,)}``, the gates packed in torch's
   order i, f, g, o. flax's input kernels carry no bias, and the port keeps
-  no ``bias_ih`` (``catalog.LSTMCell``).
+  no ``bias_ih`` (``catalog.LSTMCell``);
+- DreamerV3's plain tree (``algorithms/dreamerv3.py``): lists of
+  ``{"w", "b"}`` dense layers with ``w`` as (in, out), and conv and deconv
+  ``{"w", "b"}`` with ``w`` in HWIO, go across leaf for leaf in the JAX
+  package's layouts. That module keeps them so: it lays a kernel out for
+  torch at call time (a deconv's flipped in both spatial dims, since
+  ``jax.lax.conv_transpose`` does not flip its kernel and
+  ``F.conv_transpose2d`` does).
 
 Leaves go through ``models/convert.py``'s ``_to_tensor``, which casts by
 key; RL params are float32 throughout.
@@ -33,6 +40,8 @@ def _is_lstm(node: Dict[str, Any]) -> bool:
 
 def _port_layout(node: Any) -> Any:
     """A flax subtree -> the port's layout, leaves still numpy."""
+    if isinstance(node, (list, tuple)):
+        return [_port_layout(v) for v in node]
     if not isinstance(node, dict):
         return np.asarray(node)
     if _is_lstm(node):
@@ -60,12 +69,16 @@ def from_flax_params(params: Any, device: DeviceLike = None) -> Any:
     def to_tensors(node, key=None):
         if isinstance(node, dict):
             return {k: to_tensors(v, k) for k, v in node.items()}
+        if isinstance(node, list):
+            return [to_tensors(v, key) for v in node]
         return _to_tensor(node, device, None, key)
 
     return to_tensors(_port_layout(params))
 
 
 def _flax_layout(node: Any) -> Any:
+    if isinstance(node, (list, tuple)):
+        return [_flax_layout(v) for v in node]
     if not isinstance(node, dict):
         return node.detach().cpu().numpy()
     if "weight_ih" in node:

@@ -6,7 +6,9 @@ learner.py``): the same loss functions' gradients, clipped by global norm
 and applied by Adam (``optax.chain(clip_by_global_norm, adam)`` there),
 with the same piecewise-linear learning-rate schedules. The params live on
 the learner's device (None: the CUDA card); ``get_weights`` hands back
-host copies, as ``jax.device_get`` hands back host arrays.
+host copies, as ``jax.device_get`` hands back host arrays. The Adam step
+is ``core/optim.py``'s, which the algorithms with optimizers of their own
+(SAC, CQL, TD3, DreamerV3) call bare.
 
 The JAX learner shards the batch over a device mesh and drops a ragged
 tail to a multiple of the device count; this learner has one device and
@@ -19,14 +21,69 @@ import torch
 
 from ..._device import DeviceLike, resolve_device
 from ..._tree import tree_leaves, tree_map, tree_unflatten
-from .rl_module import _flat, _writable
-
-# optax.adam's defaults.
-ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-8
+from .optim import adam_init, adam_step
+from .rl_module import _writable
 
 
 def _host(tree):
-    return tree_map(lambda t, _: t.detach().to("cpu", copy=True), tree)
+    """Host copies of a tree's tensors (other leaves as they are)."""
+    return tree_map(lambda t, _: t.detach().to("cpu", copy=True)
+                    if torch.is_tensor(t) else t, tree)
+
+
+def clone_tree(tree, device: Optional[torch.device] = None):
+    """A detached copy of a tree's tensors (on ``device`` when given);
+    other leaves (step counts) as they are."""
+    return tree_map(lambda t, _: t.detach().to(device or t.device,
+                                               copy=True)
+                    if torch.is_tensor(t) else t, tree)
+
+
+def trainable(tree):
+    """``tree``'s tensors as leaves that take gradients."""
+    return tree_map(lambda t, _: t.requires_grad_(True), tree)
+
+
+def gradients(loss: torch.Tensor, tree):
+    """d loss / d each tensor of ``tree``, a tree like it; a leaf the loss
+    does not reach gets zeros, as jax.grad gives it."""
+    leaves = tree_leaves(tree)
+    grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    return tree_unflatten(tree, [torch.zeros_like(t) if g is None else g
+                                 for t, g in zip(leaves, grads)])
+
+
+def scalars(metrics: Dict[str, torch.Tensor]) -> Dict[str, float]:
+    """0-dim metric tensors -> floats, in one copy to the host."""
+    names = list(metrics)
+    values = torch.stack([metrics[k].detach().float()
+                          for k in names]).tolist()
+    return dict(zip(names, values))
+
+
+def load_state(state, device: torch.device):
+    """A copy of an update's state (SAC, TD3, DreamerV3: host tensors
+    from a checkpoint, or another state) on ``device``, its params and
+    SAC's temperature taking gradients."""
+    state = clone_tree(state, device)
+    trainable(state["params"])
+    if "log_alpha" in state:
+        state["log_alpha"].requires_grad_(True)
+    return state
+
+
+def device_batch(batch: Dict[str, Any], device: torch.device
+                 ) -> Dict[str, torch.Tensor]:
+    """Numpy columns (or tensors) -> tensors on ``device``; floating
+    columns as float32, as jnp.asarray makes them without x64."""
+    out = {}
+    for k, v in batch.items():
+        t = v if torch.is_tensor(v) \
+            else torch.as_tensor(_writable(np.asarray(v)))
+        if t.is_floating_point():
+            t = t.to(torch.float32)
+        out[k] = t.to(device)
+    return out
 
 
 class TorchLearner:
@@ -53,21 +110,7 @@ class TorchLearner:
         else:
             self._lr = lambda step: float(lr)
         self.set_weights(module.init_params(seed))
-        zeros = lambda t, _: torch.zeros_like(t, requires_grad=False)
-        self.opt_state = {"count": 0, "mu": tree_map(zeros, self.params),
-                          "nu": tree_map(zeros, self.params)}
-
-    def _device_batch(self, batch: Dict[str, Any]) -> Dict[str, torch.Tensor]:
-        """Numpy columns (or tensors) -> tensors on the device; floating
-        columns as float32, as jnp.asarray makes them without x64."""
-        out = {}
-        for k, v in batch.items():
-            t = v if torch.is_tensor(v) \
-                else torch.as_tensor(_writable(np.asarray(v)))
-            if t.is_floating_point():
-                t = t.to(torch.float32)
-            out[k] = t.to(self.device)
-        return out
+        self.opt_state = adam_init(self.params)
 
     def compute_gradients(self, batch: Dict[str, np.ndarray]
                           ) -> Tuple[torch.Tensor, Dict[str, Any], Any]:
@@ -76,13 +119,9 @@ class TorchLearner:
         not reach gets zeros, as jax.grad gives it."""
         if self.connector is not None:
             batch = self.connector(dict(batch), module=self.module)
-        leaves = tree_leaves(self.params)
         loss, aux = self.loss_fn(self.params, self.module,
-                                 self._device_batch(batch))
-        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
-        grads = [torch.zeros_like(p) if g is None else g
-                 for p, g in zip(leaves, grads)]
-        return loss, aux, tree_unflatten(self.params, grads)
+                                 device_batch(batch, self.device))
+        return loss, aux, gradients(loss, self.params)
 
     @torch.no_grad()
     def apply_gradients(self, grads) -> None:
@@ -91,21 +130,12 @@ class TorchLearner:
         norm reaches max_norm (no epsilon added, unlike
         ``clip_grad_norm_``); the step's learning rate is the schedule at
         the count of updates before it."""
-        g = _flat(grads)
+        g = tree_leaves(grads)
         norm = torch.linalg.vector_norm(
-            torch.stack([torch.linalg.vector_norm(x) for x in g.values()]))
+            torch.stack([torch.linalg.vector_norm(x) for x in g]))
         scale = (self.max_grad_norm / norm).clamp(max=1.0)
-        st = self.opt_state
-        lr = self._lr(st["count"])
-        st["count"] += 1
-        bc1 = 1.0 - ADAM_B1 ** st["count"]
-        bc2 = 1.0 - ADAM_B2 ** st["count"]
-        mus, nus = _flat(st["mu"]), _flat(st["nu"])
-        for key, p in _flat(self.params).items():
-            grad, mu, nu = g[key] * scale, mus[key], nus[key]
-            mu.mul_(ADAM_B1).add_(grad, alpha=1.0 - ADAM_B1)
-            nu.mul_(ADAM_B2).addcmul_(grad, grad, value=1.0 - ADAM_B2)
-            p.sub_(lr * (mu / bc1) / ((nu / bc2).sqrt() + ADAM_EPS))
+        adam_step(self.params, tree_map(lambda x, _: x * scale, grads),
+                  self.opt_state, self._lr(self.opt_state["count"]))
 
     def update(self, batch: Dict[str, np.ndarray]) -> Dict[str, Any]:
         loss, aux, grads = self.compute_gradients(batch)

@@ -16,6 +16,7 @@ import torch
 from torch import nn
 from torch.func import functional_call
 
+from ..._tree import tree_paths
 from .catalog import (Catalog, LSTMEncoder, MLPEncoder, init_flax_style,
                       merge_model_config)
 
@@ -33,20 +34,14 @@ def params_of(net: nn.Module) -> Dict[str, Any]:
     return out
 
 
-def _flat(params: Dict[str, Any], prefix: str = "") -> Dict[str, Any]:
-    out = {}
-    for k, v in params.items():
-        if isinstance(v, dict):
-            out.update(_flat(v, prefix + k + "."))
-        else:
-            out[prefix + k] = v
-    return out
+def _leaf_of(params) -> torch.Tensor:
+    while isinstance(params, dict):
+        params = next(iter(params.values()))
+    return params
 
 
 def _device_of(params) -> torch.device:
-    while isinstance(params, dict):
-        params = next(iter(params.values()))
-    return params.device
+    return _leaf_of(params).device
 
 
 def _writable(a: np.ndarray) -> np.ndarray:
@@ -55,12 +50,14 @@ def _writable(a: np.ndarray) -> np.ndarray:
     return a if a.flags.writeable else a.copy()
 
 
-def _input(x, device: torch.device) -> torch.Tensor:
-    """An observation batch (numpy or tensor) as f32 on ``device``."""
+def _input(x, device: torch.device,
+           dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """An observation batch (numpy or tensor) as ``dtype`` (f32) on
+    ``device``."""
     if torch.is_tensor(x):
-        return x.to(device=device, dtype=torch.float32)
-    return torch.as_tensor(_writable(np.asarray(x, np.float32)),
-                           device=device)
+        return x.to(device=device, dtype=dtype)
+    return torch.as_tensor(_writable(np.asarray(x)),
+                           device=device).to(dtype)
 
 
 def _numpy(t: torch.Tensor) -> np.ndarray:
@@ -74,7 +71,7 @@ def apply_net(net: nn.Module, params, *args):
     flax keeps it and inside its LSTM encoder) is one object: it gets
     its params once, under its first name. torch's tie_weights would
     swap that object's tensors once a name and so put its own back."""
-    flat = _flat(params)
+    flat = tree_paths(params)
     names = getattr(net, "_param_names", None)
     if names is None:
         names = net._param_names = frozenset(
@@ -406,26 +403,37 @@ class SACModule(RLModule):
         init_flax_style(self.q_net, gen)
         return {"actor": params_of(self.net), "q": params_of(self.q_net)}
 
+    # Inputs take the params' device and dtype: float32 as the JAX
+    # package runs, float64 where a test holds the update in it.
     def apply_actor(self, params, obs):
+        leaf = _leaf_of(params)
         return apply_net(self.net, params["actor"],
-                         _input(obs, _device_of(params)))
+                         _input(obs, leaf.device, leaf.dtype))
 
     def apply_q(self, params, obs, action):
-        device = _device_of(params)
-        return apply_net(self.q_net, params["q"], _input(obs, device),
-                         _input(action, device))
+        leaf = _leaf_of(params)
+        return apply_net(self.q_net, params["q"],
+                         _input(obs, leaf.device, leaf.dtype),
+                         _input(action, leaf.device, leaf.dtype))
 
     def apply(self, params, obs):
         return self.apply_actor(params, obs)
 
-    def sample_action(self, params, obs, generator: torch.Generator):
+    def sample_action(self, params, obs,
+                      noise: Union[torch.Generator, torch.Tensor]):
         """Reparameterized squashed-Gaussian sample -> (action, logp).
-        The noise comes from ``generator`` (on the params' device): the
-        JAX package draws it from a jax.random key, another stream."""
+        ``noise`` is the standard normal ``eps`` itself (a tensor shaped
+        like the action batch, as the updates take it, so that a test can
+        hand in the JAX package's draw), or a ``torch.Generator`` on the
+        params' device to draw it from (the runners): the JAX package
+        draws it from a jax.random key, another stream."""
         mean, log_std = self.apply_actor(params, obs)
         std = torch.exp(log_std)
-        eps = torch.randn(mean.shape, generator=generator,
-                          device=mean.device, dtype=mean.dtype)
+        if torch.is_tensor(noise):
+            eps = noise.to(device=mean.device, dtype=mean.dtype)
+        else:
+            eps = torch.randn(mean.shape, generator=noise,
+                              device=mean.device, dtype=mean.dtype)
         pre = mean + std * eps
         action = torch.tanh(pre)
         # log prob with tanh change-of-variables (SAC appendix C)

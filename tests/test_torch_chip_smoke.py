@@ -1115,3 +1115,265 @@ class TestRllibPhase:
         assert cs.finite_losses({"total_loss": 1.0, "epsilon": float("nan")})
         assert not cs.finite_losses({"vf_loss": float("inf")})
         assert not cs.finite_losses({"epsilon": 0.5})
+
+
+def _cast(tree, dtype):
+    from ray_tpu_torch._tree import tree_map
+
+    return tree_map(lambda t, _: t.to(dtype) if torch.is_tensor(t)
+                    and t.is_floating_point() else t, tree)
+
+
+def _pendulum_batch(seed: int, n: int = 256):
+    """``n`` transitions of PendulumEnv under uniform actions."""
+    import numpy as np
+
+    env, rng = cs.PendulumEnv(), np.random.default_rng(seed)
+    obs, _ = env.reset(seed=seed)
+    cols = {k: [] for k in ("obs", "actions", "rewards", "terminateds",
+                            "next_obs")}
+    for _ in range(n):
+        action = rng.uniform(-1, 1, 1).astype(np.float32)
+        nxt, reward, term, trunc, _ = env.step(2 * action)
+        for k, v in zip(cols, (obs, action, reward, term, nxt)):
+            cols[k].append(v)
+        obs = env.reset()[0] if trunc else nxt
+    batch = {k: torch.as_tensor(np.asarray(v)) for k, v in cols.items()}
+    return {k: v.float() if v.is_floating_point() else v
+            for k, v in batch.items()}
+
+
+class TestOffPolicyPhase:
+    """The rllib_offpolicy phase's Pendulum (the card's host has no
+    gymnasium) and its card-vs-CPU measures with the planted faults."""
+
+    def test_pendulum_follows_gymnasium(self):
+        import gymnasium as gym
+        import numpy as np
+
+        ours, theirs = cs.PendulumEnv(), gym.make("Pendulum-v1")
+        rng = np.random.default_rng(0)
+        a, b = ours.reset(seed=7)[0], theirs.reset(seed=7)[0]
+        resets = 0
+        for _ in range(450):
+            np.testing.assert_allclose(a, b, rtol=1e-6, atol=1e-6)
+            # past the torque limit too: both clip it
+            action = rng.uniform(-2.5, 2.5, 1).astype(np.float32)
+            a, ra, ta, ua, _ = ours.step(action)
+            b, rb, tb, ub, _ = theirs.step(action)
+            assert abs(float(ra) - float(rb)) <= 1e-6 * max(1.0, abs(rb))
+            assert (ta, ua) == (tb, ub)
+            if ua:
+                a, b = ours.reset()[0], theirs.reset()[0]
+                resets += 1
+        assert resets == 2
+        theirs.close()
+
+    def test_pendulum_spaces(self):
+        import numpy as np
+
+        from ray_tpu_torch.rllib.env.env_runner import unsquash_action
+
+        env = cs.PendulumEnv()
+        assert env.observation_space.shape == (3,)
+        assert env.action_space.shape == (1,)
+        np.testing.assert_array_equal(
+            unsquash_action(np.array([-1.0, 0.0, 1.0], np.float32),
+                            env.action_space), [-2.0, 0.0, 2.0])
+
+    @pytest.mark.parametrize("shape", [cs.FRAMES_SHAPE, (16, 16, 1)])
+    def test_frames_env(self, shape):
+        import numpy as np
+
+        config = None if shape == cs.FRAMES_SHAPE else {"shape": shape}
+        env = cs.FramesEnv(config)
+        obs, _ = env.reset(seed=3)
+        assert obs.shape == shape == env.observation_space.shape
+        assert obs.dtype == np.float32 and 0 <= obs.min() <= obs.max() <= 1
+        assert env.action_space.n == cs.FRAMES_ACTIONS == 6
+        np.testing.assert_array_equal(obs, cs.FramesEnv(config).reset(
+            seed=3)[0])
+        lit = np.argwhere(obs[..., 0] == 1.0)
+        assert len(lit) == 64 and tuple(lit.min(0) // 8) == env._agent
+        total = 0.0
+        for t in range(cs.FRAMES_EPISODE):
+            before = env._agent
+            # walk toward the goal, one axis at a time
+            (dr, dc) = np.sign(np.subtract(env._goal, env._agent))
+            action = (0 if dr < 0 else 1) if dr else \
+                (2 if dc < 0 else 3) if dc else 4
+            obs, reward, term, trunc, _ = env.step(action)
+            total += reward
+            assert abs(env._agent[0] - before[0]) + abs(
+                env._agent[1] - before[1]) <= 1
+            assert not term and trunc == (t == cs.FRAMES_EPISODE - 1)
+        assert total >= 5
+
+    def test_errs_over_dicts_and_lists(self):
+        tree = {"a": [{"w": torch.ones(2)}, {"w": torch.full((2,), 2.0)}],
+                "b": torch.tensor([4.0, -4.0])}
+        other = {"a": [{"w": torch.ones(2)}, {"w": torch.tensor([2.0,
+                                                                 3.0])}],
+                 "b": torch.tensor([4.0, -4.0])}
+        assert cs.grad_errs(other, tree) == {"a.0.w": 0.0, "a.1.w": 0.5,
+                                             "b": 0.0}
+        assert cs.tree_err(other, tree) == 0.25
+
+    def test_step_errs_skip_unclear_first_gradients(self):
+        ref = {"w": torch.zeros(3)}
+        grads = {"w": torch.tensor([1.0, 1e-6, 0.5])}
+        moved = {"w": torch.tensor([0.0, 2e-3, 1e-4])}
+        # the second element's first step may take either sign: skipped
+        assert cs.step_errs(moved, ref, grads, 1e-3) == {
+            "w": pytest.approx(0.1)}
+        with pytest.raises(ValueError):
+            cs.plant_rl_fault(None, "no_such_fault")
+
+    @pytest.fixture(scope="class")
+    def offpolicy(self):
+        from ray_tpu_torch.rllib.algorithms.cql import make_cql_penalty
+        from ray_tpu_torch.rllib.algorithms.sac import make_sac_update
+        from ray_tpu_torch.rllib.algorithms.td3 import (TD3Module,
+                                                         make_td3_update)
+        from ray_tpu_torch.rllib.core.learner import gradients
+        from ray_tpu_torch.rllib.core.rl_module import SACModule
+
+        def measure(name, seed, dtype, fault=None):
+            """What the phase holds card vs CPU, here at ``dtype`` from
+            the weights drawn from ``seed``: SAC's and CQL's gradients
+            (CQL's penalty's too), TD3's params after two steps."""
+            if name == "td3":
+                update = make_td3_update(TD3Module(3, 1), 0.99, 1e-3, 0.005,
+                                         2, 0.2, 0.5, device="cpu")
+            else:
+                module = SACModule(3, 1)
+                update = make_sac_update(
+                    module, 0.99, 3e-4, 0.005, -1.0, device="cpu",
+                    critic_penalty_fn=make_cql_penalty(module, 1.0, 8)
+                    if name == "cql" else None)
+            if fault:
+                cs.plant_rl_fault(update, fault)
+            weights = update.module.init_params(seed)
+            batch = _cast(_pendulum_batch(seed), dtype)
+            noise = _cast(update.noise(256, torch.Generator().manual_seed(
+                seed)), dtype)
+            state = update.init_state(params=_cast(weights, dtype))
+            p = state["params"]
+            if name == "td3":
+                first = {"q": gradients(update.critic_loss(
+                    p["q"], state["target"], batch, noise), p["q"]),
+                    "actor": gradients(update.actor_loss(
+                        p["actor"], p["q"], batch), p["actor"])}
+                for _ in range(2):
+                    update(state, batch, noise)
+                return state["params"], first
+            out = {"update": update.gradients(state, batch, noise)[1]}
+            if name == "cql":
+                q1, q2 = update.module.apply_q(p, batch["obs"],
+                                               batch["actions"])
+                out["penalty"] = gradients(update.critic_penalty(
+                    p, batch, q1, q2, noise)[0], p["q"])
+            return out
+
+        def errs(ours, ref):
+            if isinstance(ours, tuple):  # TD3: in Adam steps
+                return max(cs.step_errs(ours[0], ref[0], ref[1],
+                                        1e-3).values())
+            out = max(cs.grad_errs(ours["update"], ref["update"]).values())
+            if "penalty" in ours:
+                out = max(out, cs.tree_err(ours["penalty"], ref["penalty"]))
+            return out
+
+        return measure, errs
+
+    @pytest.mark.parametrize("name", ["sac", "cql", "td3"])
+    @pytest.mark.parametrize("seed", [0, 1])
+    def test_band_admits_f32_rounding(self, offpolicy, name, seed):
+        # f32 against f64 on the CPU (saturated tanh actions included:
+        # seed 1 reads 3.4e-3 for SAC and CQL, TD3 2.4e-3 steps at most)
+        measure, errs = offpolicy
+        tol = cs.TOL_TD3_STEPS if name == "td3" else cs.TOL_OFFPOLICY_GRADS
+        assert errs(measure(name, seed, torch.float32),
+                    measure(name, seed, torch.float64)) <= tol
+
+    @pytest.mark.parametrize("name,fault", [
+        ("sac", "actor_q_no_grad"), ("cql", "repeat_tiles"),
+        ("td3", "actor_every_step")])
+    def test_band_rejects_planted_faults(self, offpolicy, name, fault):
+        measure, errs = offpolicy
+        tol = cs.TOL_TD3_STEPS if name == "td3" else cs.TOL_OFFPOLICY_GRADS
+        for seed in (0, 1):
+            assert errs(measure(name, seed, torch.float32, fault),
+                        measure(name, seed, torch.float64)) > 5 * tol
+
+
+class TestDreamerPhase:
+    """The dreamer phase's card-vs-CPU band, its flip count and its
+    planted faults, at a small width (16x16x3 frames) on the CPU."""
+
+    @pytest.fixture(scope="class")
+    def dreamer(self):
+        import numpy as np
+
+        from ray_tpu_torch.rllib.algorithms.dreamerv3 import (
+            DreamerModule, make_dreamer_update)
+
+        env, rng = cs.FramesEnv({"shape": (16, 16, 3)}), \
+            np.random.default_rng(0)
+        b, t = 4, 8
+        frames = [env.reset(seed=0)[0]]
+        actions = rng.integers(0, 6, b * t)
+        rewards, terms = [], []
+        for a in actions[:-1]:
+            obs, reward, term, _, _ = env.step(a)
+            frames.append(obs)
+            rewards.append(reward)
+            terms.append(term)
+        batch = {"obs": torch.as_tensor(np.stack(frames)).reshape(
+            b, t, 16, 16, 3),
+            "actions": torch.as_tensor(actions).reshape(b, t),
+            "rewards": torch.as_tensor(rewards + [0.0]).float().reshape(
+                b, t),
+            "terminateds": torch.as_tensor(terms + [False]).reshape(b, t),
+            "is_first": torch.arange(t).expand(b, t) == 0}
+
+        def update(fault=None):
+            module = DreamerModule((16, 16, 3), 6, n_deter=32, n_cat=4,
+                                   n_classes=4, hidden=32, cnn_depth=8,
+                                   n_bins=41)
+            out = make_dreamer_update(module, horizon=5, device="cpu")
+            return cs.plant_rl_fault(out, fault) if fault else out
+
+        weights = update().module.init_params(0)
+        noise = update().noise(b, t, torch.Generator().manual_seed(0))
+
+        def grads(dtype, fault=None):
+            u = update(fault)
+            state = u.init_state(params=_cast(weights, dtype))
+            return u.gradients(state, _cast(batch, dtype),
+                               _cast(noise, dtype))[1]
+
+        return update, weights, batch, noise, grads
+
+    def test_band_admits_f32_rounding(self, dreamer):
+        update, weights, batch, noise, grads = dreamer
+        ours, ref = grads(torch.float32), grads(torch.float64)
+        errs = {k: max(cs.grad_errs(ours[k], ref[k]).values())
+                for k in ("wm", "actor", "critic")}
+        assert max(errs.values()) <= cs.TOL_DREAMER_GRADS / 100, errs
+        flips = cs.categorical_flips(
+            update(), update(), _cast(weights, torch.float64),
+            _cast(batch, torch.float64), _cast(noise, torch.float64))
+        assert {k: v["flips"] for k, v in flips.items()} == dict.fromkeys(
+            ("posterior_latents", "imagined_actions", "imagined_latents"),
+            0)
+        assert flips["posterior_latents"]["of"] == 4 * 8 * 4
+
+    @pytest.mark.parametrize("fault", ["deconv_unflipped",
+                                       "no_straight_through",
+                                       "bin_one_high"])
+    def test_band_rejects_planted_faults(self, dreamer, fault):
+        *_, grads = dreamer
+        ours, ref = grads(torch.float32, fault), grads(torch.float64)
+        assert max(max(cs.grad_errs(ours[k], ref[k]).values())
+                   for k in ours) > 100 * cs.TOL_DREAMER_GRADS

@@ -31,7 +31,7 @@ import pytest
 import torch
 
 import ray_tpu_torch as rt
-from chip_smoke import CartPoleEnv, TwoCartPoles, policy_of
+from chip_smoke import CartPoleEnv, FramesEnv, TwoCartPoles, policy_of
 from ray_tpu.rllib.algorithms import bc as jbc
 from ray_tpu.rllib.algorithms import dqn as jdqn
 from ray_tpu.rllib.algorithms import impala as jimpala
@@ -182,10 +182,9 @@ def test_exports_the_ported_surface():
     import ray_tpu.rllib as jrl
     import ray_tpu_torch.rllib as trl
 
-    # Every name of the JAX package's RLlib but the four algorithms left
-    # for the next slice and its learner, which TorchLearner replaces.
-    later = {"SAC", "SACConfig", "TD3", "TD3Config", "CQL", "CQLConfig",
-             "DreamerV3", "DreamerV3Config", "JaxLearner"}
+    # Every name of the JAX package's RLlib but its learner, which
+    # TorchLearner replaces.
+    later = {"JaxLearner"}
     assert set(jrl.__all__) - later <= set(trl.__all__)
     assert {"TorchLearner", "MultiAgentPPO", "RecurrentPPOModule",
             "Catalog", "ConnectorPipelineV2", "Scheduler"} <= set(trl.__all__)
@@ -613,6 +612,23 @@ def _finite_stats(stats):
     return bool(losses) and all(np.isfinite(losses))
 
 
+def _same_weights(a, b) -> None:
+    for x, y in zip(jax.tree.leaves(to_flax_params(a.get_weights())),
+                    jax.tree.leaves(to_flax_params(b.get_weights()))):
+        np.testing.assert_array_equal(x, y)
+
+
+def _off_policy(name, seed=0):
+    from ray_tpu_torch.rllib import SACConfig, TD3Config
+
+    config = {"sac": SACConfig, "td3": TD3Config}[name]()
+    return (config.environment("Pendulum-v1")
+            .env_runners(num_env_runners=1, rollout_fragment_length=100)
+            .training(train_batch_size=32, learning_starts=100,
+                      updates_per_iter=3, model={"fcnet_hiddens": [16]})
+            .learners(device="cpu").debugging(seed=seed))
+
+
 class TestAlgorithms:
     def test_ppo_iteration_and_synced_runners(self, cluster):
         algo = _build(tppo.PPOConfig().training(minibatch_size=32))
@@ -697,3 +713,103 @@ class TestAlgorithms:
         result = bc.train()
         assert _finite_stats(result) and result["vf_loss"] == 0.0
         assert result["num_env_steps_sampled_lifetime"] == 32
+
+    @pytest.mark.parametrize("name", ["sac", "td3"])
+    def test_off_policy_trains_and_checkpoints(self, cluster, tmp_path,
+                                               name):
+        # After the JAX package's test_sac_pendulum_smoke and
+        # test_td3_trains_and_checkpoints.
+        algo = _off_policy(name).build()
+        try:
+            result = algo.train()
+            assert _finite_stats(result) and "q_loss" in result
+            assert ("alpha" if name == "sac" else "q_mean") in result
+            assert result["num_env_steps_sampled_lifetime"] == 100
+            if name == "td3":
+                assert algo._state["step"] == 3
+            algo.save(str(tmp_path))
+            other = _off_policy(name, seed=1).build()
+            try:
+                other.restore(str(tmp_path))
+                _same_weights(other, algo)
+                assert other.iteration == 1
+                # The optimizer state came back too.
+                key = "opt_state"
+                count = (lambda st: st[key]["count"]) if name == "sac" \
+                    else (lambda st: st[key]["q"]["count"])
+                assert count(other._state) == count(algo._state) == 3
+            finally:
+                other.stop()
+        finally:
+            algo.stop()
+
+    def test_cql_from_an_offline_dataset(self, cluster, tmp_path):
+        # After the JAX package's TestCQL.
+        from ray_tpu_torch import data
+        from ray_tpu_torch.rllib import CQLConfig
+
+        rng = np.random.default_rng(0)
+        rows = []
+        for i in range(128):
+            obs = rng.normal(size=3).astype(np.float32)
+            rows.append({
+                "obs": obs,
+                "actions": np.clip(rng.normal(size=1), -1, 1).astype(
+                    np.float32),
+                "rewards": np.float32(-np.sum(obs[:1] ** 2)),
+                "terminateds": np.bool_(i % 64 == 63),
+                "truncateds": np.bool_(False),
+                "next_obs": (obs * 0.9).astype(np.float32)})
+        config = (CQLConfig().environment("Pendulum-v1")
+                  .training(train_batch_size=64,
+                            offline_data=data.from_items(rows),
+                            cql_alpha=1.0, model={"fcnet_hiddens": [16]})
+                  .learners(device="cpu").debugging(seed=0))
+        algo = config.build()
+        result = algo.train()
+        assert "cql_penalty" in result and np.isfinite(result["q_loss"])
+        assert result["num_env_steps_sampled_lifetime"] == 128
+        algo.save(str(tmp_path))
+        other = config.build()
+        other.restore(str(tmp_path))
+        _same_weights(other, algo)
+        assert other._state["opt_state"]["count"] == 2
+
+    @pytest.mark.parametrize("env", ["cartpole", "pixels"])
+    def test_dreamer_trains_and_checkpoints(self, cluster, tmp_path, env):
+        # After the JAX package's TestDreamerV3 and TestDreamerV3Pixels.
+        from ray_tpu_torch.rllib import DreamerV3Config
+
+        def config(seed=0):
+            c = DreamerV3Config().env_runners(num_env_runners=1)
+            if env == "cartpole":
+                c.environment(CartPoleEnv)
+            else:
+                c.environment(FramesEnv, env_config={"shape": (16, 16, 1)})
+            return (c.training(learning_starts=32, seq_len=8, horizon=5,
+                               updates_per_iter=2, batch_sequences=4,
+                               n_deter=32, n_cat=4, n_classes=4,
+                               cnn_depth=8, critic_bins=21,
+                               model={"hidden": [32]})
+                    .learners(device="cpu").debugging(seed=seed))
+
+        algo = config().build()
+        try:
+            assert algo.module.is_image == (env == "pixels")
+            result = algo.train()
+            for key in ("wm_loss", "wm_recon", "wm_kl", "actor_loss",
+                        "critic_loss", "imag_return"):
+                assert np.isfinite(result[key]), (key, result)
+            assert algo._state["step"] == 2
+            algo.save(str(tmp_path))
+            evaluation = algo.evaluate(num_episodes=1)
+            assert np.isfinite(evaluation["evaluation_return_mean"])
+            other = config(seed=1).build()
+            try:
+                other.restore(str(tmp_path))
+                assert other.iteration == algo.iteration == 1
+                _same_weights(other, algo)
+            finally:
+                other.stop()
+        finally:
+            algo.stop()
