@@ -8,7 +8,9 @@ Run from the root of a checkout, with one CUDA card visible:
 It builds the port's kernels from ``ray_tpu_torch/ops/csrc`` (nvcc,
 sm_90a), holds each kernel against its plain PyTorch version on the card,
 drives the port's serving paths (in process, and hosted by the port's own
-control plane: Serve's build_llm_app and Data's Processor) and its train
+control plane: Serve's build_llm_app and Data's Processor, also on a
+node daemon that holds the card and on one the autoscaler launches) and
+its train
 steps at full width (GPT-2 small, the llama bench shape, ViT-B/16, the MoE
 decoder), the ResNet-50 predictor and RLlib (PPO, SAC, TD3, CQL,
 DreamerV3 and the rest), and prints one JSON line per
@@ -88,6 +90,30 @@ phase:
                     no K2, K3) launches counted in the actor's process;
                     rows/s and tokens/s against the in-process stage;
                     build_processor at its defaults
+     multinode      the processor's pipeline with its GPT stage on a node
+                    daemon: a head with num_gpus=0 and one daemon node
+                    (Cluster.add_node(daemon=True, num_gpus=1)) that holds
+                    the card; the seed-0 GPT-2-small weights (247 MB,
+                    bf16) put by the driver and pulled by the stage's pool
+                    actor across the transfer plane; that actor on the
+                    daemon node, in the daemon's process group, with 96
+                    K1 launches there and none in the driver, its tokens
+                    equal to the in-process stage's; a 64 MB bf16 CUDA
+                    tensor drawn in a num_gpus=1 task on the daemon node,
+                    read here as an equal CPU tensor; after remove_node no
+                    process or directory of the daemon left and the
+                    card's memory given back: join, pull (GB/s), stage
+                    and get seconds
+     autoscale      AutoscalerV2 over a head with num_gpus=0 and one node
+                    type {"CPU": 4, "GPU": 1}: a num_gpus=1 task running
+                    flash_attention at GPT-2's [16,12,1024,64] causal
+                    bf16 brings up a port daemon with the card, runs
+                    there (K1 launched in its process, its output within
+                    TOL_BF16_NORM of mha_reference), and once idle past 3
+                    s and a 1 s grace the node is drained and terminated
+                    and the daemon's process group is gone: seconds from
+                    submit to registration and to the result, and from
+                    idle to termination
  11. train          make_train_step(GPTConfig.gpt2_small()) at B=16,
                     S=1024, bf16, remat on (the preset) and off: step ms,
                     tokens/s, MFU, peak memory, the losses, and K1, K2, K3
@@ -1743,6 +1769,358 @@ def phase_control_plane():
         rt.shutdown()
     check(copy_dirs(node) == [], f"directories left: {copy_dirs(node)}")
     return worker
+
+
+# The multinode and autoscale phases: a head that holds no GPU, and the
+# card given to one node daemon (cluster_utils) or to one the autoscaler
+# launches (autoscaler.v2). A daemon and its workers run in a process
+# group of their own; the phases read what is left of them with
+# _private/test_utils.py's group_members and owned_dirs.
+MULTINODE_TENSOR_ELEMENTS = 32 << 20  # 64 MB of bf16
+# Card memory the driver may see missing after the daemon is gone: its
+# workers' CUDA contexts (about 500 MB each) must have been given back.
+MULTINODE_MEMORY_SLACK = 64 << 20
+AUTOSCALE_IDLE_S = 3.0
+AUTOSCALE_GRACE_S = 1.0
+AUTOSCALE_TIMEOUT = 240.0
+
+
+def remote_weights_stage():
+    """counting_stage()'s GPTInferenceStage, built from weights it pulls
+    itself: ``weights`` is a list holding the put object (so nothing
+    resolves it on the way), fetched in the pool actor's constructor and
+    timed; the rows also carry the node and the process group the actor
+    runs in."""
+    counting = counting_stage()
+
+    class RemoteWeightsStage(counting):
+        def __init__(self, weights, **kwargs):
+            import ray_tpu_torch as rt
+
+            t0 = time.perf_counter()
+            params = rt.get(weights[0], timeout=600)
+            self._pull_s = time.perf_counter() - t0
+            self._node = rt.get_runtime_context().get_node_id()
+            super().__init__(params=params, **kwargs)
+
+        def __call__(self, batch):
+            out = super().__call__(batch)
+            n = len(out[self._out])
+            out["pull_s"] = [self._pull_s] * n
+            out["stage_node"] = [self._node] * n
+            out["stage_pgid"] = [os.getpgid(0)] * n
+            return out
+
+    return RemoteWeightsStage
+
+
+def seeded_bf16(n: int, device: str):
+    """``n`` bf16 normals drawn on ``device`` from seed 0."""
+    import torch
+
+    gen = torch.Generator(device=device).manual_seed(0)
+    return torch.randn(n, generator=gen, device=device, dtype=torch.bfloat16)
+
+
+def make_tensor_on_node(n: int, device: str = "cuda"):
+    """seeded_bf16(n) drawn on the card (``device``: the CPU in the
+    tests), with the node and card of the process that drew it."""
+    import ray_tpu_torch as rt
+
+    t = seeded_bf16(n, device)
+    return {"tensor": t, "node": rt.get_runtime_context().get_node_id(),
+            "cuda_visible_devices": os.environ.get("CUDA_VISIBLE_DEVICES")}
+
+
+def multinode_checks(m: dict) -> dict:
+    """A multinode report against what the phase requires, by name: the
+    card counted once, on the daemon; the GPT stage's pool actor on the
+    daemon node, in a process of the daemon's group, with 96 K1 launches
+    there and none in the driver, its tokens equal to the in-process
+    stage's; the CUDA tensor drawn on the daemon node read by the driver
+    as an equal CPU tensor; nothing of the daemon left after
+    remove_node, and the card's memory given back."""
+    expected = {name: n * PROCESSOR_STEPS for name, n in expected_launches(
+        m["n_layers"], remat=False, train=False).items()}
+    actor, tensor = m["pool_actor"], m["tensor"]
+    return {
+        "gpu_once": m["cluster_gpus"] == 1.0
+        and m["gpus_by_node"] == {"head": 0.0, "daemon": 1.0},
+        "daemon_process": m["daemon_pid"] != m["driver_pid"],
+        "stage_on_daemon": actor["node"] == m["daemon_node"]
+        and actor["pgid"] == m["daemon_pid"]
+        and actor["pid"] not in (m["driver_pid"], m["daemon_pid"]),
+        "launches": {k: actor[k] for k in expected} == expected,
+        "driver_launches": set(m["driver_launches"].values()) == {0},
+        "tokens_equal": m["equal_rows"] == m["rows"] == 16,
+        "tensor": tensor == {"node": m["daemon_node"], "device": "cpu",
+                             "dtype": "torch.bfloat16", "equal": True,
+                             "cuda_visible_devices": "0"},
+        "daemon_reaped": m["left_processes"] == [],
+        "dirs_removed": m["dirs_during"] == 2 and m["left_dirs"] == [],
+        "memory_back": m["card_free_after"] is not None
+        and m["card_free_after"]
+        >= m["card_free_before"] - MULTINODE_MEMORY_SLACK}
+
+
+def card_free_bytes(device: str):
+    """Free memory of the card after this process gave back its cache
+    (None on the CPU, where the tests run the phase)."""
+    import torch
+
+    if device != "cuda":
+        return None
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return torch.cuda.mem_get_info()[0]
+
+
+def phase_multinode(cfg=None, device: str = "cuda"):
+    """phase_processor's pipeline with its GPT stage on a node daemon: a
+    head started with num_gpus=0, so the card belongs to one daemon node
+    (Cluster.add_node(daemon=True, num_gpus=1)); the GPT-2-small weights
+    drawn here from seed 0 and put, so they cross from the head's store
+    to the daemon's over the transfer plane; the stage's tokens against
+    the in-process stage's (run first, so the card's free memory is
+    read after this process's own growth); a 64 MB bf16 CUDA tensor
+    drawn on the daemon node and read here; then remove_node, after
+    which nothing of the daemon may be left. Returns the pool actor's
+    launches. (``cfg`` and ``device`` are for the CPU tests, which run
+    it at a tiny width.)"""
+    import numpy as np
+    import torch
+
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import data
+    from ray_tpu_torch._private.test_utils import group_members, owned_dirs
+    from ray_tpu_torch._tree import tree_leaves
+    from ray_tpu_torch.cluster_utils import Cluster
+    from ray_tpu_torch.llm import (DetokenizeStage, GPTInferenceStage,
+                                   Processor, StageSpec, TokenizeStage)
+    from ray_tpu_torch.models import GPTConfig, gpt_init
+    from ray_tpu_torch.ops import _kernels
+    from ray_tpu_torch.util import state as state_api
+
+    cfg = cfg or GPTConfig.gpt2_small()
+    prompts = _prompts(16, 600, 1024)
+    stage_kwargs = {"config": cfg, "max_new_tokens": PROCESSOR_STEPS,
+                    "device": device}
+    params = gpt_init(cfg, torch.Generator().manual_seed(0), "cpu")
+    nbytes = sum(t.numel() * t.element_size() for t in tree_leaves(params))
+    local = GPTInferenceStage(params=params, **stage_kwargs)
+    batch = TokenizeStage(max_length=cfg.max_seq_len)({"prompt": prompts})
+    local(batch)  # warm-up
+    t0 = time.perf_counter()
+    want = local(batch)["generated_tokens"]
+    local_s = time.perf_counter() - t0
+    del local
+    here = seeded_bf16(MULTINODE_TENSOR_ELEMENTS, device).cpu()
+    free_before = card_free_bytes(device)
+    cluster = Cluster(initialize_head=True,
+                      head_node_args={"num_cpus": 4, "num_gpus": 0})
+    head_node = cluster.head_node.node_id
+    try:
+        t0 = time.perf_counter()
+        daemon = cluster.add_node(num_cpus=4, num_gpus=1, daemon=True)
+        join_s = time.perf_counter() - t0
+        daemon_pid = daemon.proc.pid
+        resources = rt.cluster_resources()
+        by_node = {row["node_id"]: row["resources_total"].get("GPU", 0.0)
+                   for row in state_api.list_nodes()}
+        weights = rt.put(params)
+        processor = Processor([
+            StageSpec(TokenizeStage, {"max_length": cfg.max_seq_len}),
+            StageSpec(remote_weights_stage(),
+                      {"weights": [weights], **stage_kwargs}, num_gpus=1),
+            StageSpec(DetokenizeStage)], batch_size=16)
+        reset_launches()
+        t0 = time.perf_counter()
+        rows = processor(data.from_items([{"prompt": p}
+                                          for p in prompts])).take_all()
+        pipeline_s = time.perf_counter() - t0
+        driver_launches = dict(_kernels.LAUNCHES)
+        worker = {name: int(rows[0]["launches_" + name])
+                  for name in driver_launches}
+        pid = int(rows[0]["stage_pid"])
+        actor = {"pid": pid, "node": rows[0]["stage_node"],
+                 "pgid": int(rows[0]["stage_pgid"]),
+                 "pull_s": float(rows[0]["pull_s"]),
+                 "stage_s": float(rows[0]["stage_s"]), **worker}
+        check(len({r["stage_pid"] for r in rows}) == 1
+              and {int(r["stage_call"]) for r in rows} == {1},
+              "the GPT stage ran in more than one actor or call")
+
+        by_prompt = {r["prompt"]: np.asarray(r["generated_tokens"])
+                     for r in rows}
+        equal = sum(bool(np.array_equal(by_prompt[p], w))
+                    for p, w in zip(prompts, want))
+
+        make = rt.remote(num_gpus=1)(make_tensor_on_node)
+        ref = make.remote(MULTINODE_TENSOR_ELEMENTS, device)
+        rt.wait([ref], timeout=300)
+        t0 = time.perf_counter()
+        made = rt.get(ref, timeout=300)
+        tensor_get_s = time.perf_counter() - t0
+        t = made["tensor"]
+        tensor = {"node": made["node"], "device": str(t.device),
+                  "dtype": str(t.dtype), "equal": torch.equal(t, here),
+                  "cuda_visible_devices": made["cuda_visible_devices"]}
+        del made, t, ref, weights
+        dirs_during = len(owned_dirs(daemon_pid))
+        t0 = time.perf_counter()
+        cluster.remove_node(daemon)
+        remove_s = time.perf_counter() - t0
+        left_processes = group_members(daemon_pid)
+        left_dirs = owned_dirs(daemon_pid)
+    finally:
+        cluster.shutdown()
+    free_after = card_free_bytes(device)
+    m = {"n_layers": cfg.n_layers, "daemon_node": daemon.node_id,
+         "daemon_pid": daemon_pid,
+         "driver_pid": os.getpid(), "join_s": join_s,
+         "cluster_gpus": resources.get("GPU"),
+         "gpus_by_node": {"head": by_node.get(head_node),
+                          "daemon": by_node.get(daemon.node_id)},
+         "weights_bytes": nbytes, "weights_pull_s": actor["pull_s"],
+         "weights_pull_gb_per_s": nbytes / actor["pull_s"] / 1e9,
+         "pipeline_s": pipeline_s, "stage_on_daemon_s": actor["stage_s"],
+         "in_process_stage_s": local_s, "pool_actor": actor,
+         "driver_launches": driver_launches, "rows": len(rows),
+         "equal_rows": equal, "tensor": tensor,
+         "tensor_bytes": MULTINODE_TENSOR_ELEMENTS * 2,
+         "tensor_get_s": tensor_get_s, "remove_s": remove_s,
+         "dirs_during": dirs_during, "left_processes": left_processes,
+         "left_dirs": left_dirs, "card_free_before": free_before,
+         "card_free_after": free_after}
+    checks = multinode_checks(m)
+    emit("multinode", **m, checks=checks)
+    failed = [name for name, ok in checks.items() if not ok]
+    check(not failed, f"multinode checks failed: {failed}")
+    return worker
+
+
+def attention_on_node(shape, causal: bool, device: str = "cuda") -> dict:
+    """K1 through flash_attention at ``shape`` (bf16, seed 0) on the card
+    of the process this runs in (``device``: the CPU in the tests),
+    against mha_reference on the same inputs: the error over the
+    reference's largest magnitude, K1's launches in this process over the
+    call, and where it ran."""
+    import torch
+
+    import ray_tpu_torch as rt
+    from ray_tpu_torch.ops import _kernels, flash_attention
+    from ray_tpu_torch.ops.attention import mha_reference
+
+    gen = torch.Generator(device=device).manual_seed(0)
+    q, k, v = (torch.randn(shape, generator=gen, device=device,
+                           dtype=torch.bfloat16) for _ in range(3))
+    before = dict(_kernels.LAUNCHES)
+    out = flash_attention(q, k, v, causal=causal)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    launches = {name: n - before.get(name, 0)
+                for name, n in _kernels.LAUNCHES.items()}
+    ref = mha_reference(q, k, v, causal, 1.0 / math.sqrt(shape[-1]))
+    err = float((out.float() - ref.float()).abs().max()
+                / ref.float().abs().max())
+    return {"max_norm_err": err, "finite": bool(torch.isfinite(out).all()),
+            "launches": launches, "pid": os.getpid(), "pgid": os.getpgid(0),
+            "node": rt.get_runtime_context().get_node_id(),
+            "cuda_visible_devices": os.environ.get("CUDA_VISIBLE_DEVICES")}
+
+
+def autoscale_checks(m: dict) -> dict:
+    """An autoscale report against what the phase requires, by name."""
+    task = m["task"]
+    return {
+        "one_daemon": m["launched"] == 1 and m["daemon_gpus"] == 1.0,
+        "task_on_daemon": task["node"] == m["daemon_node"]
+        and task["pgid"] == m["daemon_pid"]
+        and task["cuda_visible_devices"] == "0",
+        "k1_launched": task["launches"].get("flash_fwd", 0) >= 1,
+        "k1_in_band": task["finite"]
+        and task["max_norm_err"] <= TOL_BF16_NORM,
+        "scaled_down": m["final_statuses"] == {"TERMINATED": 1}
+        and m["gpus_after"] is None,
+        "daemon_exited": m["daemon_exit"] is not None
+        and m["left_processes"] == []}
+
+
+def phase_autoscale(shape=GPT2_SHAPE, device: str = "cuda"):
+    """AutoscalerV2 over a head with no GPU: a num_gpus=1 task that runs
+    flash_attention at GPT-2's shape brings up a port daemon with the
+    card; the task runs there against mha_reference; once idle past the
+    timeout and its grace, the node is drained and terminated. Returns
+    the task's launches. (``shape`` and ``device`` are for the CPU
+    tests.)"""
+    import subprocess
+
+    import ray_tpu_torch as rt
+    from ray_tpu_torch._private.config import ray_config
+    from ray_tpu_torch._private.test_utils import group_members
+    from ray_tpu_torch.autoscaler.v2 import (RAY_RUNNING, RAY_STOPPING,
+                                             TERMINATED, AutoscalerV2)
+    from ray_tpu_torch.util import state as state_api
+
+    rt.init(num_cpus=4, num_gpus=0)
+    saved_grace = ray_config.scale_down_idle_grace_s
+    ray_config.set("scale_down_idle_grace_s", AUTOSCALE_GRACE_S)
+    scaler = AutoscalerV2(
+        {"gpu": {"resources": {"CPU": 4, "GPU": 1}, "max_workers": 1}},
+        max_workers=1, idle_timeout_s=AUTOSCALE_IDLE_S, interval_s=0.5)
+    try:
+        scaler.start()
+        task = rt.remote(num_gpus=1)(attention_on_node)
+        t0 = time.perf_counter()
+        ref = task.remote(shape, True, device)
+        deadline = t0 + AUTOSCALE_TIMEOUT
+        inst = None
+        while inst is None or inst.status != RAY_RUNNING:
+            check(time.perf_counter() < deadline
+                  and (inst is None or inst.status != TERMINATED),
+                  "no daemon registered for the GPU demand")
+            time.sleep(0.05)
+            live = list(scaler.manager.instances.values())
+            inst = live[0] if live else None
+        register_s = time.perf_counter() - t0
+        daemon_pid = inst.handle["proc"].pid
+        daemon_gpus = next((row["resources_total"].get("GPU")
+                            for row in state_api.list_nodes()
+                            if row["node_id"] == inst.node_id_hex), None)
+        result = rt.get(ref, timeout=AUTOSCALE_TIMEOUT)
+        result_s = time.perf_counter() - t0
+        t_idle = time.perf_counter()
+        while inst.status in (RAY_RUNNING, RAY_STOPPING):
+            check(time.perf_counter() < t_idle + AUTOSCALE_TIMEOUT,
+                  "the idle node was not scaled down")
+            time.sleep(0.05)
+        proc = inst.handle["proc"]
+        try:
+            exit_code = proc.wait(timeout=30)
+        except subprocess.TimeoutExpired:
+            exit_code = None
+        down_s = time.perf_counter() - t_idle
+        statuses = scaler.manager.status_counts()
+        launched = len(scaler.manager.instances)
+        gpus_after = rt.cluster_resources().get("GPU")
+    finally:
+        scaler.stop()
+        ray_config.set("scale_down_idle_grace_s", saved_grace)
+        rt.shutdown()
+    m = {"daemon_node": inst.node_id_hex, "daemon_pid": daemon_pid,
+         "daemon_gpus": daemon_gpus, "launched": launched, "task": result,
+         "submit_to_register_s": register_s,
+         "submit_to_result_s": result_s, "idle_to_terminated_s": down_s,
+         "idle_timeout_s": AUTOSCALE_IDLE_S, "grace_s": AUTOSCALE_GRACE_S,
+         "final_statuses": statuses, "gpus_after": gpus_after,
+         "daemon_exit": exit_code,
+         "left_processes": group_members(daemon_pid),
+         "tol": TOL_BF16_NORM}
+    checks = autoscale_checks(m)
+    emit("autoscale", **m, checks=checks)
+    failed = [name for name, ok in checks.items() if not ok]
+    check(not failed, f"autoscale checks failed: {failed}")
+    return result["launches"]
 
 
 def reset_launches() -> None:
@@ -4548,6 +4926,8 @@ def main() -> int:
     phase_online()
     phase_runtime()
     pool_actor = phase_control_plane()
+    multinode = phase_multinode()
+    autoscale = phase_autoscale()
     trained = phase_train(peaks)
     train_dp = phase_train_dp(peaks, trained[True]["losses"])
     train_feed = phase_train_feed(peaks)
@@ -4564,7 +4944,9 @@ def main() -> int:
     # Launches on each main path, each counted over exactly its run:
     # the batch serving slice, its 8 greedy steps as CUDA-graph replays
     # of the fused DAG, the same stage's call inside a Data pool actor
-    # (counted in that process), one GPT-2-small train step with remat
+    # (counted in that process), the same stage's call in a pool actor on
+    # a node daemon and the autoscaled daemon's attention task (each
+    # counted in its process), one GPT-2-small train step with remat
     # (the preset) and one without, the 5 steps of the Train worker and
     # the 5 fed ViT steps of the train_feed worker (each counted in its
     # process), the parallel phase's tp=2 and fsdp=2 steps, Ulysses and
@@ -4572,7 +4954,8 @@ def main() -> int:
     # and MoE train step each, and one ViT classifier call.
     pool = {name: pool_actor[name] for name in serving}
     paths = {"serving": serving, "dag_fused_replays": dag_fused,
-             "processor_pool_actor": pool,
+             "processor_pool_actor": pool, "multinode": multinode,
+             "autoscale": autoscale,
              "train": trained[True]["launches"],
              "train_no_remat": trained[False]["launches"],
              "train_dp_worker": train_dp["launches"],

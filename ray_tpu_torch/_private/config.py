@@ -51,6 +51,13 @@ def shm_prefix() -> str:
     return f"rtt_{_tmpdir_tag()}_"
 
 
+def session_dirs(session_name: str) -> tuple:
+    """(session dir, store dir) of a head's or a node daemon's session:
+    where the stale-session sweep (runtime.py) looks for them."""
+    return (os.path.join(temp_root(), "rtt_sessions", session_name),
+            os.path.join("/dev/shm", shm_prefix() + session_name))
+
+
 def _coerce(value: str, default: Any) -> Any:
     if isinstance(default, bool):
         return value.strip().lower() in ("1", "true", "yes", "on")

@@ -40,7 +40,7 @@ from . import refdebug
 from . import serialization
 from . import telemetry
 from . import wiretap
-from .config import shm_prefix, temp_root
+from .config import session_dirs
 from .ids import ActorID, NodeID, ObjectID, TaskID, WorkerID
 from .object_store import ObjectStore, create_store, inline_threshold
 from .resources import detect_node_resources
@@ -67,10 +67,10 @@ def _gc_stale_sessions(max_age_s: Optional[float] = None):
         from .config import ray_config
         max_age_s = float(ray_config.session_gc_max_age_s)
     now = time.time()
-    # Only this TMPDIR's head stores and sessions (see config.shm_prefix);
-    # both carry .owner_pid stamps.
-    for d in glob.glob(os.path.join("/dev/shm", shm_prefix() + "*")) + \
-            glob.glob(os.path.join(temp_root(), "rtt_sessions", "*")):
+    # Only this TMPDIR's stores and sessions, the head's and the node
+    # daemons' (see config.session_dirs); all carry .owner_pid stamps.
+    session_glob, store_glob = session_dirs("*")
+    for d in glob.glob(store_glob) + glob.glob(session_glob):
         try:
             # A live session's dir can be legitimately empty (worker
             # sockets are unlinked right after accept), so emptiness is
@@ -184,10 +184,8 @@ class Node:
         self.node_id = NodeID.from_random()
         _gc_stale_sessions()
         session_name = f"session_{int(time.time())}_{uuid.uuid4().hex[:8]}"
-        self.session_dir = session_dir or os.path.join(
-            temp_root(), "rtt_sessions", session_name)
-        self.store_dir = os.path.join("/dev/shm",
-                                      shm_prefix() + session_name)
+        default_session, self.store_dir = session_dirs(session_name)
+        self.session_dir = session_dir or default_session
         os.makedirs(self.session_dir, exist_ok=True)
         self.store = create_store(self.store_dir,
                                  capacity=object_store_memory)

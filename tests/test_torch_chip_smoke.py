@@ -7,12 +7,15 @@ refusing to run without a card. They need no card: chip_smoke.py and
 bench_kernels.py import only the standard library at module level."""
 
 import dataclasses
+import importlib
 import importlib.util
 import math
 import os
 import shutil
+import signal
 import subprocess
 import sys
+import time
 
 import pytest
 import torch
@@ -29,6 +32,7 @@ def _load(name):
 
 
 cs = _load("chip_smoke")
+tu = importlib.import_module("ray_tpu_torch._private.test_utils")
 
 _FWD = ("_ZN45_GLOBAL__N__8f4ed862_12_flash_fwd_cu_5c297d6e21flash_fwd_bf16_"
         "kernelILi{d}EEEv14CUtensorMap_stS1_S1_P13__nv_bfloat16Pfifi")
@@ -1377,3 +1381,174 @@ class TestDreamerPhase:
         ours, ref = grads(torch.float32, fault), grads(torch.float64)
         assert max(max(cs.grad_errs(ours[k], ref[k]).values())
                    for k in ours) > 100 * cs.TOL_DREAMER_GRADS
+
+
+def _report(base: dict, path: str, value):
+    """A deep copy of ``base`` with the key at the dotted ``path`` set."""
+    import copy
+
+    out = copy.deepcopy(base)
+    node = out
+    *parents, last = path.split(".")
+    for key in parents:
+        node = node[key]
+    node[last] = value
+    return out
+
+
+class TestMultihostHelpers:
+    """What the multinode and autoscale phases read of a daemon after it
+    is gone (``_private/test_utils.py``): the live members of its process
+    group and the directories it stamped with its pid."""
+
+    def test_group_members_count_live_processes_only(self):
+        proc = subprocess.Popen(
+            [sys.executable, "-c",
+             "import subprocess, sys, time; "
+             "subprocess.Popen([sys.executable, '-c', "
+             "'import time; time.sleep(60)']); time.sleep(60)"],
+            start_new_session=True)
+        try:
+            deadline = time.monotonic() + 30
+            while len(tu.group_members(proc.pid)) < 2:
+                assert time.monotonic() < deadline
+                time.sleep(0.02)
+            members = tu.group_members(proc.pid)
+            assert proc.pid in members and len(members) == 2
+            assert tu.proc_stat(proc.pid)[2] == str(proc.pid)
+        finally:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait(timeout=30)
+        deadline = time.monotonic() + 30
+        while tu.group_members(proc.pid):  # the orphan is reaped by init
+            assert time.monotonic() < deadline, tu.group_members(proc.pid)
+            time.sleep(0.02)
+        assert tu.proc_stat(proc.pid) == []
+
+    def test_owned_dirs_read_the_owner_stamp(self, tmp_path):
+        from ray_tpu_torch._private.config import shm_prefix, temp_root
+
+        mine = [os.path.join("/dev/shm", shm_prefix() + "node_test_" +
+                             str(os.getpid())),
+                os.path.join(temp_root(), "rtt_sessions",
+                             f"node_test_{os.getpid()}")]
+        other = os.path.join(temp_root(), "rtt_sessions",
+                             f"node_other_{os.getpid()}")
+        try:
+            for d, pid in ((mine[0], 4242424), (mine[1], 4242424),
+                           (other, 4242425)):
+                os.makedirs(d)
+                with open(os.path.join(d, ".owner_pid"), "w") as f:
+                    f.write(str(pid))
+            assert tu.owned_dirs(4242424) == sorted(mine)
+            assert tu.owned_dirs(4242425) == [other]
+            assert tu.owned_dirs(4242426) == []
+        finally:
+            for d in (*mine, other):
+                shutil.rmtree(d, ignore_errors=True)
+
+
+class TestMultinodePhase:
+    REPORT = {
+        "n_layers": 12, "daemon_node": "d" * 32, "daemon_pid": 200,
+        "driver_pid": 100, "cluster_gpus": 1.0,
+        "gpus_by_node": {"head": 0.0, "daemon": 1.0},
+        "pool_actor": {"pid": 300, "node": "d" * 32, "pgid": 200,
+                       "flash_fwd": 96, "flash_bwd_dq": 0,
+                       "flash_bwd_dkv": 0},
+        "driver_launches": {"flash_fwd": 0, "flash_bwd_dq": 0,
+                            "flash_bwd_dkv": 0},
+        "rows": 16, "equal_rows": 16,
+        "tensor": {"node": "d" * 32, "device": "cpu",
+                   "dtype": "torch.bfloat16", "equal": True,
+                   "cuda_visible_devices": "0"},
+        "dirs_during": 2, "left_processes": [], "left_dirs": [],
+        "card_free_before": 80 << 30, "card_free_after": (80 << 30) - 1}
+
+    def test_report_accepted(self):
+        assert all(cs.multinode_checks(self.REPORT).values())
+
+    @pytest.mark.parametrize("path,value,failed", [
+        ("cluster_gpus", 2.0, "gpu_once"),                 # counted twice
+        ("gpus_by_node.head", 1.0, "gpu_once"),
+        ("driver_pid", 200, "daemon_process"),
+        ("pool_actor.node", "h" * 32, "stage_on_daemon"),  # on the head
+        ("pool_actor.pgid", 100, "stage_on_daemon"),       # not its group
+        ("pool_actor.pid", 100, "stage_on_daemon"),        # the driver
+        ("pool_actor.flash_fwd", 0, "launches"),           # the plain path
+        ("pool_actor.flash_bwd_dq", 12, "launches"),
+        ("driver_launches.flash_fwd", 96, "driver_launches"),
+        ("equal_rows", 15, "tokens_equal"),
+        ("tensor.device", "cuda:0", "tensor"),
+        ("tensor.equal", False, "tensor"),
+        ("tensor.node", "h" * 32, "tensor"),
+        ("tensor.cuda_visible_devices", "", "tensor"),
+        ("left_processes", [301], "daemon_reaped"),
+        ("left_dirs", ["/dev/shm/rtt_x_node_1"], "dirs_removed"),
+        ("dirs_during", 0, "dirs_removed"),
+        ("card_free_after", (80 << 30) - (600 << 20), "memory_back"),
+        ("card_free_after", None, "memory_back"),
+    ])
+    def test_report_rejected(self, path, value, failed):
+        checks = cs.multinode_checks(_report(self.REPORT, path, value))
+        assert [k for k, ok in checks.items() if not ok] == [failed]
+
+    def test_phase_on_the_cpu(self, capsys):
+        """The whole phase at a tiny width on the CPU, the daemon's GPU
+        faked: every check but K1's launches (the plain path here) and
+        the card's memory passes."""
+        import json
+
+        from ray_tpu_torch.models import GPTConfig
+
+        with pytest.raises(AssertionError) as err:
+            cs.phase_multinode(GPTConfig.tiny(), "cpu")
+        assert "['launches', 'memory_back']" in str(err.value)
+        (line,) = [x for x in capsys.readouterr().out.splitlines()
+                   if x.startswith('{"phase": "multinode"')]
+        m = json.loads(line)
+        assert m["pool_actor"]["pgid"] == m["daemon_pid"]
+        assert m["weights_bytes"] > 0 and m["weights_pull_s"] > 0
+        assert m["rows"] == m["equal_rows"] == 16
+
+
+class TestAutoscalePhase:
+    REPORT = {
+        "daemon_node": "d" * 32, "daemon_pid": 200, "daemon_gpus": 1.0,
+        "launched": 1,
+        "task": {"node": "d" * 32, "cuda_visible_devices": "0", "pgid": 200,
+                 "launches": {"flash_fwd": 1, "flash_bwd_dq": 0,
+                              "flash_bwd_dkv": 0},
+                 "finite": True, "max_norm_err": 4e-3},
+        "final_statuses": {"TERMINATED": 1}, "gpus_after": None,
+        "daemon_exit": 0, "left_processes": []}
+
+    def test_report_accepted(self):
+        assert all(cs.autoscale_checks(self.REPORT).values())
+
+    @pytest.mark.parametrize("path,value,failed", [
+        ("launched", 2, "one_daemon"),
+        ("daemon_gpus", None, "one_daemon"),
+        ("task.node", "h" * 32, "task_on_daemon"),
+        ("task.pgid", 100, "task_on_daemon"),
+        ("task.cuda_visible_devices", "", "task_on_daemon"),
+        ("task.launches.flash_fwd", 0, "k1_launched"),
+        ("task.max_norm_err", 3e-2, "k1_in_band"),
+        ("task.finite", False, "k1_in_band"),
+        ("final_statuses", {"RAY_RUNNING": 1}, "scaled_down"),
+        ("gpus_after", 1.0, "scaled_down"),
+        ("daemon_exit", None, "daemon_exited"),
+        ("left_processes", [300], "daemon_exited"),
+    ])
+    def test_report_rejected(self, path, value, failed):
+        checks = cs.autoscale_checks(_report(self.REPORT, path, value))
+        assert [k for k, ok in checks.items() if not ok] == [failed]
+
+    def test_phase_on_the_cpu(self, capsys):
+        """The whole phase on the CPU at a small shape, the daemon's GPU
+        faked: every check but K1's launch passes."""
+        with pytest.raises(AssertionError) as err:
+            cs.phase_autoscale((1, 2, 64, 16), "cpu")
+        assert "['k1_launched']" in str(err.value)
+        assert '"final_statuses": {"TERMINATED": 1}' in \
+            capsys.readouterr().out

@@ -24,16 +24,24 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = os.path.join(REPO, "ray_tpu_torch")
 REF = os.path.join(REPO, "ray_tpu")
 
-# The copied control plane and the JAX-free parts of RLlib, by subpackage
-# (module files under the port).
+# The copied control plane, the multi-host plane and the JAX-free parts
+# of RLlib, by subpackage (module files under the port; _private holds
+# daemon.py, usage.py and test_utils.py).
 COPIED = ("api.py", "exceptions.py", "_private", "_native", "util", "dag",
           "serve", "data", "train", "rllib/utils", "rllib/connectors",
-          "rllib/offline")
+          "rllib/offline", "cluster_utils.py", "autoscaler")
 # Keys of the reference's TPU detection that the port's GPU detection
 # replaces (``_private/resources.py``): RAY_TPU_<name> -> its RTT_ key,
 # or None where the port has no counterpart (GCE metadata serves TPU VMs).
+# Every other key maps to RTT_<name>; the node daemon's (what it and
+# cluster_utils read from the environment) are listed too.
 RENAMED_KEYS = {"RAY_TPU_NUM_CHIPS": "RTT_NUM_GPUS",
-                "RAY_TPU_USE_GCE_METADATA": None}
+                "RAY_TPU_USE_GCE_METADATA": None,
+                "RAY_TPU_CLUSTER_TOKEN_HEX": "RTT_CLUSTER_TOKEN_HEX",
+                "RAY_TPU_NODE_HOST": "RTT_NODE_HOST",
+                "RAY_TPU_CLUSTER_DAEMONS": "RTT_CLUSTER_DAEMONS"}
+DAEMON_KEYS = ("RAY_TPU_CLUSTER_TOKEN_HEX", "RAY_TPU_NODE_HOST",
+               "RAY_TPU_CLUSTER_DAEMONS")
 
 
 def _sources(root, part=""):
@@ -58,7 +66,8 @@ def _node_dirs(tmpdir):
     code = textwrap.dedent("""
         import glob, json, os
         from ray_tpu_torch._private import netcomm, runtime_env
-        from ray_tpu_torch._private.config import shm_prefix, temp_root
+        from ray_tpu_torch._private.config import (session_dirs, shm_prefix,
+                                                   temp_root)
         from ray_tpu_torch._private.runtime import _gc_stale_sessions
         seen = []
         glob.glob = lambda pattern: seen.append(pattern) or []
@@ -73,6 +82,7 @@ def _node_dirs(tmpdir):
             "envs": runtime_env._envs_root(),
             "lock": os.path.join(temp_root(), netcomm.HostCopyGate._PATH_FMT
                                  % (os.getuid(), 0)),
+            "daemon": session_dirs("node_1760000000_4567cdef"),
             "globs": seen}))
     """)
     env = dict(os.environ)
@@ -276,6 +286,19 @@ class TestStaticIsolation:
         assert renamed > 40
         assert keys(REF, "RTT_") == set()
 
+    @pytest.mark.parametrize("key", DAEMON_KEYS)
+    def test_daemon_keys_are_renamed(self, key):
+        ref = "".join(open(os.path.join(REF, *p.split("/"))).read() for p in
+                      ("_private/daemon.py", "cluster_utils.py"))
+        port = "".join(open(os.path.join(PORT, *p.split("/"))).read()
+                       for p in ("_private/daemon.py", "cluster_utils.py"))
+        assert key in ref and RENAMED_KEYS[key] in port and key not in port
+
+    def test_daemon_entry_module_is_the_copys(self):
+        src = open(os.path.join(PORT, "cluster_utils.py")).read()
+        assert '"-m", "ray_tpu_torch._private.daemon"' in src
+        assert '"--num-gpus"' in src and "--num-tpus" not in src
+
     def test_worker_entry_module_is_the_copys(self):
         src = open(os.path.join(PORT, "_private", "scheduler.py")).read()
         assert '"-m", "ray_tpu_torch._private.worker_proc"' in src
@@ -287,9 +310,15 @@ class TestStaticIsolation:
         port = _node_dirs(None)
         port_globs = port["globs"]
         assert ref_globs and len(port_globs) == 2
-        port_dirs = [port["store"], port["session"]]
+        # the head's and a node daemon's (daemon.py)
+        port_dirs = [port["store"], port["session"], *port["daemon"]]
         ref_dirs = ["/dev/shm/ray_tpu_session_1_ab",
-                    "/tmp/ray_tpu_sessions/s_1"]
+                    "/tmp/ray_tpu_sessions/s_1",
+                    "/dev/shm/ray_tpu_node_1_ab",
+                    "/tmp/ray_tpu_sessions/node_1_ab"]
+        ref_daemon = open(os.path.join(REF, "_private", "daemon.py")).read()
+        assert '"/tmp/ray_tpu_sessions"' in ref_daemon
+        assert 'f"ray_tpu_{session_name}"' in ref_daemon
         assert not any(fnmatch.fnmatch(d, g)
                        for d in port_dirs for g in ref_globs)
         assert not any(fnmatch.fnmatch(d, g)
@@ -322,16 +351,18 @@ class TestStaticIsolation:
                 shutil.rmtree(os.path.dirname(got["envs"]))
         else:
             assert a["envs"].startswith(str(tmpdirs[0]) + os.sep)
-        for key in ("session", "store", "envs", "lock"):
+        for key in ("session", "store", "envs", "lock", "daemon"):
             assert a[key] != b[key], key
         assert a["store"].startswith("/dev/shm/rtt_")
         assert len(a["socket"]) <= 107 and len(b["socket"]) <= 107
         for mine, theirs in ((a, b), (b, a)):
             globs = mine["globs"]
-            assert all(any(fnmatch.fnmatch(mine[k], g) for g in globs)
-                       for k in ("session", "store"))
-            assert not any(fnmatch.fnmatch(theirs[k], g) for g in globs
-                           for k in ("session", "store"))
+            assert all(any(fnmatch.fnmatch(d, g) for g in globs)
+                       for d in [mine["session"], mine["store"],
+                                 *mine["daemon"]])
+            assert not any(fnmatch.fnmatch(d, g) for g in globs
+                           for d in [theirs["session"], theirs["store"],
+                                     *theirs["daemon"]])
 
     def test_import_loads_no_torch(self):
         # The text stages and the Processor too: their pool actors start

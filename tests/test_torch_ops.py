@@ -452,6 +452,27 @@ class TestIsolation:
                 "ray_tpu_torch.rllib.offline"} <= set(out)
         assert [m for m in out if _forbidden(m)] == []
 
+    def test_multihost_import_leaves_jax_and_ray_tpu_out(self):
+        # The node daemon, cluster_utils, the usage report, the chaos
+        # helpers and the autoscaler (v1 and v2) reach neither jax nor
+        # ray_tpu, nor torch: a daemon process never needs it.
+        code = (
+            "import sys\n"
+            "import ray_tpu_torch._private.daemon\n"
+            "import ray_tpu_torch._private.usage\n"
+            "import ray_tpu_torch._private.test_utils\n"
+            "import ray_tpu_torch.cluster_utils\n"
+            "import ray_tpu_torch.autoscaler, ray_tpu_torch.autoscaler.v2\n"
+            "print('\\n'.join(sys.modules))\n")
+        out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                             capture_output=True, text=True, timeout=120,
+                             check=True).stdout.split()
+        assert {"ray_tpu_torch._private.daemon",
+                "ray_tpu_torch.autoscaler.resource_demand_scheduler",
+                "ray_tpu_torch.autoscaler.v2"} <= set(out)
+        assert [m for m in out if _forbidden(m)] == []
+        assert [m for m in out if m.split(".")[0] == "torch"] == []
+
     def test_device_plumbing_import_leaves_jax_and_ray_tpu_out(self,
                                                               tmp_path):
         # The feed, the store's tensor landing, the fused DAG, profiling
