@@ -12,8 +12,9 @@ control plane: Serve's build_llm_app and Data's Processor, also on a
 node daemon that holds the card and on one the autoscaler launches) and
 its train
 steps at full width (GPT-2 small, the llama bench shape, ViT-B/16, the MoE
-decoder), the ResNet-50 predictor and RLlib (PPO, SAC, TD3, CQL,
-DreamerV3 and the rest), and prints one JSON line per
+decoder; GPT-2 small also in Tune trials), the ResNet-50 predictor, the
+libraries (Tune, the dashboard, Workflow, Jobs) and RLlib (PPO, SAC, TD3,
+CQL, DreamerV3 and the rest), and prints one JSON line per
 phase:
 
   1. device         the card (nvidia-smi name and power limit), torch, CUDA
@@ -149,6 +150,33 @@ phase:
                     and the share overlapping a kernel); device_memory_stats
                     against torch's peak; a CUDA tensor the worker puts,
                     read back equal by the driver
+     libraries      the port's Tune, dashboard, Workflow and Jobs on a
+                    head that declares the card (num_gpus=1): a sweep of
+                    phase 11's GPT-2-small step (remat, B=16, S=1024,
+                    seed-0 weights and batch) over lr 6e-4, 2e-4 and 0,
+                    one trial at a time, each trial an actor pinned to
+                    the card ({"CPU": 1, "GPU": 1}) under ASHA (max_t 8,
+                    grace 2, reduction 2) with FailureConfig(
+                    max_failures=1); the first trial checkpoints its state
+                    (params and AdamW moments, torch.save) after step 4,
+                    fails once, and resumes there: its step-1 loss against
+                    phase 11's, its steps 5-8 against the same 8 steps
+                    run here without a break; the lr-0 trial cut at a
+                    rung, the best an lr > 0 trial that reached step 8;
+                    K1/K2/K3 launched 24/12/12 a step in each trial's
+                    process; the dashboard's cluster_status read by each
+                    trial while it holds the card (GPU 0 of 1 free) and
+                    after the sweep (1 of 1), /metrics as Prometheus
+                    text; the card's free memory back after the sweep; a
+                    durable workflow whose num_gpus=1 step 1 runs K1 at
+                    GPT-2's shape and returns its CUDA output (persisted
+                    through the store as a CPU tensor) and whose step 2
+                    fails once: resume finishes it with no K1 launch,
+                    equal to the same workflow run without a break; a job
+                    that prints torch.cuda.is_available() in its
+                    entrypoint (recorded: its supervisor holds no GPU),
+                    and one stopped while it runs. Cold start, step,
+                    checkpoint write and restore, and sweep seconds
      parallel       the parallel strategies on 2 ranks sharing the card,
                     each a process of one gloo world (parallel.launch.
                     RankPool on cuda:0; NCCL takes one rank a GPU), at
@@ -240,8 +268,9 @@ phase:
                     outside the band; no K1-K3 launch
  22. kernels        one entry per kernel: launches on each main path
                     (the processor's counted in its pool actor, the
-                    Train workers' in their processes, the fused DAG's
-                    replays by its own count), error,
+                    Train workers' in their processes, the Tune trials'
+                    summed over theirs, the fused DAG's replays by its
+                    own count), error,
                     times and bound at the four model shapes and above
                     the head limit, and its design
 
@@ -2005,6 +2034,11 @@ def attention_on_node(shape, causal: bool, device: str = "cuda") -> dict:
     against mha_reference on the same inputs: the error over the
     reference's largest magnitude, K1's launches in this process over the
     call, and where it ran."""
+    return attention_run(shape, causal, device)[1]
+
+
+def attention_run(shape, causal: bool, device: str = "cuda"):
+    """attention_on_node's call: (K1's output, its report)."""
     import torch
 
     import ray_tpu_torch as rt
@@ -2023,10 +2057,11 @@ def attention_on_node(shape, causal: bool, device: str = "cuda") -> dict:
     ref = mha_reference(q, k, v, causal, 1.0 / math.sqrt(shape[-1]))
     err = float((out.float() - ref.float()).abs().max()
                 / ref.float().abs().max())
-    return {"max_norm_err": err, "finite": bool(torch.isfinite(out).all()),
-            "launches": launches, "pid": os.getpid(), "pgid": os.getpgid(0),
-            "node": rt.get_runtime_context().get_node_id(),
-            "cuda_visible_devices": os.environ.get("CUDA_VISIBLE_DEVICES")}
+    return out, {
+        "max_norm_err": err, "finite": bool(torch.isfinite(out).all()),
+        "launches": launches, "pid": os.getpid(), "pgid": os.getpgid(0),
+        "node": rt.get_runtime_context().get_node_id(),
+        "cuda_visible_devices": os.environ.get("CUDA_VISIBLE_DEVICES")}
 
 
 def autoscale_checks(m: dict) -> dict:
@@ -2186,15 +2221,17 @@ def check_training(phase: str, losses, launches, expected) -> None:
           f"{phase} launches over one step {launches}, want {expected}")
 
 
-def token_batch(vocab: int, b: int, s: int, seed: int = 0):
-    """Random tokens on the card and their next tokens (np.roll)."""
+def token_batch(vocab: int, b: int, s: int, seed: int = 0,
+                device: str = "cuda"):
+    """Random tokens on the card (``device``) and their next tokens
+    (np.roll)."""
     import numpy as np
     import torch
 
     tokens = np.random.default_rng(seed).integers(0, vocab, (b, s),
                                                   dtype=np.int64)
-    return (torch.from_numpy(tokens).cuda(),
-            torch.from_numpy(np.roll(tokens, -1, 1)).cuda())
+    return (torch.from_numpy(tokens).to(device),
+            torch.from_numpy(np.roll(tokens, -1, 1)).to(device))
 
 
 def phase_train(peaks):
@@ -2685,6 +2722,503 @@ def phase_train_feed(peaks):
     failed = [name for name, ok in got["checks"].items() if not ok]
     check(not failed, f"train_feed checks failed: {failed}")
     return m["launches"]
+
+
+# The libraries phase: Tune, the dashboard, a durable workflow and a job
+# on one cluster whose head declares the card (num_gpus=1). The sweep:
+# phase_train's GPT-2-small step (remat, B=16, S=1024, seed-0 weights and
+# batch) in trials pinned to the card, AdamW at each of TUNE_LRS (best
+# first), one trial at a time under ASHA (max_t 8, grace 2, reduction 2:
+# rungs at steps 2 and 4); the first trial fails once after its step-4
+# checkpoint and Tune restarts it from that checkpoint.
+TUNE_STEPS = 8
+TUNE_LRS = [6e-4, 2e-4, 0.0]
+TUNE_CHECKPOINT_AT = 4
+# The resumed trial's steps against the same steps run uninterrupted in
+# this process: the bf16 loss_rtol of test_torch_train.py. The restored
+# bf16 params and moments are the saved ones to the bit; the embedding's
+# backward sums its rows with atomics, in another order in each run.
+TOL_TUNE_RESUME = 2e-3
+
+
+def process_age_s() -> float:
+    """Seconds since this process started (from /proc)."""
+    with open("/proc/self/stat") as f:
+        start = int(f.read().rsplit(")", 1)[1].split()[19])
+    with open("/proc/uptime") as f:
+        uptime = float(f.read().split()[0])
+    return uptime - start / os.sysconf("SC_CLK_TCK")
+
+
+def read_cluster_status(url: str) -> dict:
+    """The dashboard's /api/cluster_status: the GPUs it counts and the
+    nodes."""
+    import urllib.request
+
+    with urllib.request.urlopen(url + "/api/cluster_status",
+                                timeout=30) as resp:
+        status = json.loads(resp.read())
+    return {"gpu_total": status["resources_total"].get("GPU"),
+            "gpu_available": status["resources_available"].get("GPU"),
+            "nodes": status["nodes"]}
+
+
+def tune_optimizer(lr: float):
+    """The default step's AdamW at ``lr``."""
+    import functools
+
+    from ray_tpu_torch.models._training import default_optimizer
+
+    return functools.partial(default_optimizer, lr=lr)
+
+
+def train_state_digest(state) -> str:
+    """state_digest over a train state whole: its step, its params and
+    its optimizer's state (the AdamW moments and step counts), so a
+    restore that drops any of them gives another digest."""
+    import torch
+
+    return state_digest({"step": torch.as_tensor(state["step"]),
+                         "params": state["params"],
+                         "opt": state["opt_state"].state_dict()["state"]})
+
+
+def restore_trial_state(init_state, checkpoint, device) -> tuple:
+    """A trial's train state from its ``checkpoint``, on ``device``: the
+    params, the AdamW state and the step as saved. Returns the state and
+    the seconds of the read and of the state's build."""
+    t0 = time.perf_counter()
+    saved = checkpoint.to_state(map_location=device)
+    t1 = time.perf_counter()
+    state = init_state(params=saved["params"])
+    state["opt_state"].load_state_dict(saved["opt_state"])
+    state["step"] = saved["step"]
+    return state, {"restore_read_s": t1 - t0,
+                   "restore_init_s": time.perf_counter() - t1}
+
+
+def tune_gpt_trial(config, cfg=None, device="cuda", batch=(16, 1024),
+                   marker=None, dashboard=None):
+    """A trial of the libraries phase, in its own actor process: the
+    GPT-2-small step with AdamW at ``config["lr"]``, from the seed-0
+    weights on the seed-0 batch (or from the trial's checkpoint, which
+    Tune hands back on a restart, loaded onto this process's card), for
+    TUNE_STEPS steps, each closed by fetching the loss and reported, the
+    kernels' launches counted in this process over each step. After step
+    TUNE_CHECKPOINT_AT it checkpoints the state (the params and both
+    AdamW moments); the first trial to find no ``marker`` then raises,
+    once. Each step appends a row to progress.jsonl in the trial's
+    directory; the first step of each process also reads the dashboard
+    while this trial holds the card. (``cfg``, ``device`` and ``batch``
+    are for the CPU tests.)"""
+    entered, age = time.perf_counter(), process_age_s()
+    import shutil
+    import tempfile
+
+    import torch
+
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import train, tune
+    from ray_tpu_torch.models import GPTConfig, make_train_step
+    from ray_tpu_torch.ops import _kernels
+
+    if device == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("the trial sees no card")
+    torch.backends.cuda.matmul.allow_tf32 = False  # as in the driver
+    cfg = cfg or GPTConfig.gpt2_small()
+    init_state, train_step = make_train_step(
+        cfg, optimizer=tune_optimizer(config["lr"]), device=device)
+    where = {"pid": os.getpid(), "gpu_ids": rt.get_gpu_ids(),
+             "cuda_visible_devices": os.environ.get("CUDA_VISIBLE_DEVICES"),
+             "device_count": torch.cuda.device_count()}
+    restored, first = tune.get_checkpoint(), 1
+    if restored is None:
+        state = init_state(torch.Generator(device=device).manual_seed(0))
+    else:
+        t0 = time.perf_counter()
+        state, times = restore_trial_state(init_state, restored, device)
+        first = state["step"] + 1
+        t1 = time.perf_counter()
+        where.update(restore_s=t1 - t0, **times,
+                     restored_from=os.path.basename(restored.path),
+                     restored_digest=train_state_digest(state),
+                     digest_s=time.perf_counter() - t1)
+    tokens = token_batch(cfg.vocab_size, *batch, device=device)
+    init_s = time.perf_counter() - entered
+    trial_dir = tune.get_trial_dir()
+    for step in range(first, TUNE_STEPS + 1):
+        before = dict(_kernels.LAUNCHES)
+        t0 = time.perf_counter()
+        state, m = train_step(state, tokens)
+        loss = float(m["loss"])  # the fetch ends the step
+        row = {"lr": config["lr"], "step": step, "loss": loss,
+               "step_s": time.perf_counter() - t0,
+               "launches": {name: n - before.get(name, 0)
+                            for name, n in _kernels.LAUNCHES.items()},
+               **where}
+        if step == first:
+            row.update(cold_start_s=time.perf_counter() - entered,
+                       init_s=init_s, process_age_at_entry_s=age)
+            if dashboard:
+                row["dashboard"] = read_cluster_status(dashboard)
+        checkpoint = None
+        if step == TUNE_CHECKPOINT_AT:
+            path = tempfile.mkdtemp(prefix="state_", dir=trial_dir)
+            t0 = time.perf_counter()
+            checkpoint = train.Checkpoint.from_state(state, path)
+            row["checkpoint_write_s"] = time.perf_counter() - t0
+            row["checkpoint_bytes"] = sum(
+                os.path.getsize(os.path.join(path, f))
+                for f in os.listdir(path))
+            t0 = time.perf_counter()
+            row["saved_digest"] = train_state_digest(state)
+            row["digest_s"] = time.perf_counter() - t0
+        with open(os.path.join(trial_dir, "progress.jsonl"), "a") as f:
+            f.write(json.dumps(row) + "\n")
+        try:
+            tune.report({"loss": loss, "training_iteration": step},
+                        checkpoint=checkpoint)
+        finally:
+            if checkpoint is not None:
+                shutil.rmtree(path, ignore_errors=True)
+        if checkpoint is not None and not os.path.exists(marker):
+            open(marker, "w").close()
+            raise RuntimeError("planted failure after the step-4 checkpoint")
+
+
+def trial_rows(grid) -> list:
+    """Every progress row of every trial of a sweep, trial by trial, each
+    tagged with its trial."""
+    return [dict(row, trial=os.path.basename(result.path))
+            for result in grid
+            for row in read_rows(os.path.join(result.path,
+                                              "progress.jsonl"))]
+
+
+def sum_launches(rows) -> dict:
+    """The kernels' launches summed over rows, each the launches of one
+    step (or call) in its own process."""
+    total = {}
+    for row in rows:
+        for name, n in row["launches"].items():
+            total[name] = total.get(name, 0) + n
+    return total
+
+
+def uninterrupted_losses(cfg, device: str, batch, lr: float,
+                         steps: int) -> list:
+    """tune_gpt_trial's steps run here without a break: its losses."""
+    import torch
+
+    from ray_tpu_torch.models import make_train_step
+
+    init_state, train_step = make_train_step(
+        cfg, optimizer=tune_optimizer(lr), device=device)
+    state = init_state(torch.Generator(device=device).manual_seed(0))
+    tokens = token_batch(cfg.vocab_size, *batch, device=device)
+    losses = []
+    for _ in range(steps):
+        state, m = train_step(state, tokens)
+        losses.append(float(m["loss"]))
+    return losses
+
+
+def workflow_k1_step(shape, log_path: str, device: str = "cuda"):
+    """Step 1 of the libraries phase's workflow, in a num_gpus=1 task:
+    K1 at ``shape`` on this process's card (attention_run), its output
+    returned, a CUDA tensor that the store brings to host. Each run
+    appends its report (launches, error, card) to ``log_path``."""
+    import torch
+
+    if device == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("the workflow's GPU step sees no card")
+    out, report = attention_run(shape, True, device)
+    with open(log_path, "a") as f:
+        f.write(json.dumps(report) + "\n")
+    return out
+
+
+def workflow_check_step(out, marker: str) -> dict:
+    """Step 2: fails on its first run (no ``marker`` yet); then step 1's
+    output as it arrived, with its device and whether it is finite."""
+    import torch
+
+    if not os.path.exists(marker):
+        open(marker, "w").close()
+        raise RuntimeError("planted failure of the workflow's step 2")
+    return {"output": out, "device": str(out.device),
+            "finite": bool(torch.isfinite(out).all())}
+
+
+def read_rows(path: str) -> list:
+    """The JSON rows of a JSON-lines file ([] if there is none)."""
+    if not os.path.exists(path):
+        return []
+    with open(path) as f:
+        return [json.loads(line) for line in f]
+
+
+def libraries_checks(m: dict) -> dict:
+    """A libraries report against what the phase requires, by name."""
+    expected = expected_launches(m["n_layers"], remat=True)
+    rows, ref = m["rows"], m["reference_losses"]
+    first = [r for r in rows if r["lr"] == TUNE_LRS[0]]
+    pids = list(dict.fromkeys(r["pid"] for r in first))
+    resumed = [r for r in first if len(pids) == 2 and r["pid"] == pids[1]]
+    readings = [r["dashboard"] for r in rows if "dashboard" in r]
+    wf, job = m["workflow"], m["job"]
+    it = m["iterations"]
+    return {
+        "no_errors": m["errors"] == [],
+        "pinned": bool(rows) and all(
+            r["cuda_visible_devices"] == "0" and r["gpu_ids"] == [0]
+            and r["device_count"] == 1 for r in rows),
+        "asha_cut": it.get(TUNE_LRS[-1], TUNE_STEPS) < TUNE_STEPS
+        and m["best_lr"] > 0 and it.get(m["best_lr"]) == TUNE_STEPS,
+        "first_loss": bool(first) and first[0]["step"] == 1
+        and abs(first[0]["loss"] - m["train_first_loss"])
+        <= TOL_TRAIN_DP_LOSS * abs(m["train_first_loss"]),
+        "resumed": [r["step"] for r in first] == list(
+            range(1, TUNE_STEPS + 1))
+        and [r["step"] for r in resumed] == list(
+            range(TUNE_CHECKPOINT_AT + 1, TUNE_STEPS + 1))
+        and "restored_from" in resumed[0]
+        and resumed[0].get("restored_digest") is not None
+        and resumed[0]["restored_digest"] == next(
+            (r.get("saved_digest") for r in first
+             if r["step"] == TUNE_CHECKPOINT_AT), None)
+        and all(abs(r["loss"] - ref[r["step"] - 1])
+                <= TOL_TUNE_RESUME * abs(ref[r["step"] - 1])
+                for r in resumed),
+        "launches": bool(rows) and all(r["launches"] == expected
+                                       for r in rows),
+        "dashboard_during": len(readings) == m["trial_processes"] > 0
+        and all(x == {"gpu_total": 1.0, "gpu_available": 0.0, "nodes": 1}
+                for x in readings),
+        "dashboard_after": m["dashboard_after"] == {
+            "gpu_total": 1.0, "gpu_available": 1.0, "nodes": 1},
+        "metrics_text": m["metrics_samples"] > 0
+        and m["metrics_malformed"] == [],
+        "memory_back": m["card_free_after"] is not None
+        and m["card_free_after"]
+        >= m["card_free_before"] - MULTINODE_MEMORY_SLACK,
+        "workflow_resume": wf["statuses"] == ["FAILED", "SUCCESSFUL"]
+        and wf["step1_runs"] == [1, 1, 2]
+        and set(wf["resume_launches"].values()) == {0}
+        and wf["equal_to_uninterrupted"] and wf["output"] == {
+            "device": "cpu", "dtype": "torch.bfloat16",
+            "shape": list(m["workflow_shape"]), "finite": True},
+        "workflow_k1": all(
+            r["launches"]["flash_fwd"] == 1 and r["finite"]
+            and r["cuda_visible_devices"] == "0"
+            and r["max_norm_err"] <= TOL_BF16_NORM
+            for r in wf["step1_reports"]),
+        "job": job["status"] == "SUCCEEDED" and job["return_code"] == 0
+        and job["entrypoint_cuda_available"] in ("True", "False")
+        and job["stop"] and job["stopped_status"] == "STOPPED"}
+
+
+def metrics_format(text: str):
+    """(samples, malformed lines) of a Prometheus text exposition."""
+    samples = [line for line in text.splitlines()
+               if line and not line.startswith("#")]
+    bad = [line for line in samples
+           if not re.match(r"^[a-zA-Z_:][\w:]*(\{[^}]*\})? \S+$", line)]
+    return len(samples), bad
+
+
+def phase_libraries(train_first_loss: float, cfg=None, device: str = "cuda",
+                    batch=(16, 1024), shape=GPT2_SHAPE):
+    """The port's libraries on a head that declares the card: a Tune
+    sweep of tune_gpt_trial over TUNE_LRS under ASHA with
+    FailureConfig(max_failures=1) and the dashboard read during and
+    after it; a durable workflow whose num_gpus=1 step 1 runs K1 at
+    ``shape`` and whose step 2 fails once, resumed with step 1 read from
+    storage, against the same workflow run without a break; a job that
+    prints what its entrypoint sees of the card, and one stopped while
+    it runs. ``train_first_loss`` is phase_train's first loss on the same
+    weights and batch. Returns the trials' and the workflow step's
+    launches. (``cfg``, ``device``, ``batch`` and ``shape`` are for the
+    CPU tests.)"""
+    import shutil
+    import tempfile
+    import urllib.request
+
+    import torch
+
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import dashboard, tune, workflow
+    from ray_tpu_torch.job import JobSubmissionClient
+    from ray_tpu_torch.models import GPTConfig
+    from ray_tpu_torch.ops import _kernels
+
+    cfg = cfg or GPTConfig.gpt2_small()
+    reference = uninterrupted_losses(cfg, device, batch, TUNE_LRS[0],
+                                     TUNE_STEPS)
+    free_before = card_free_bytes(device)
+    storage = tempfile.mkdtemp(prefix="rtt_libraries_")
+    marker = os.path.join(storage, "trial_failed")
+    rt.init(num_cpus=4, num_gpus=1)
+    node = current_node()
+    try:
+        url = f"http://127.0.0.1:{dashboard.start_dashboard()}"
+        # The job needs no card: it runs beside the sweep.
+        client = JobSubmissionClient()
+        job_t0_wall = time.time()
+        job_id = client.submit_job(
+            entrypoint=f"{sys.executable} -c 'import torch; "
+                       f"print(torch.cuda.is_available())'",
+            submission_id="raysubmit_libraries_cuda")
+        trainable = tune.with_resources(tune.with_parameters(
+            tune_gpt_trial, cfg=cfg, device=device, batch=batch,
+            marker=marker, dashboard=url), {"CPU": 1, "GPU": 1})
+        tuner = tune.Tuner(
+            trainable, param_space={"lr": tune.grid_search(TUNE_LRS)},
+            tune_config=tune.TuneConfig(
+                metric="loss", mode="min", max_concurrent_trials=1,
+                scheduler=tune.ASHAScheduler(
+                    max_t=TUNE_STEPS, grace_period=2, reduction_factor=2)),
+            run_config=tune.RunConfig(
+                name="libraries", storage_path=storage,
+                checkpoint_config=tune.CheckpointConfig(num_to_keep=1),
+                failure_config=tune.FailureConfig(max_failures=1)))
+        reset_launches()
+        t0 = time.perf_counter()
+        grid = tuner.fit()
+        sweep_s = time.perf_counter() - t0
+        driver_launches = dict(_kernels.LAUNCHES)
+        rows = trial_rows(grid)
+        best = grid.get_best_result()
+        deadline = time.perf_counter() + 60
+        after = read_cluster_status(url)
+        while after["gpu_available"] != 1.0 and time.perf_counter() < deadline:
+            time.sleep(0.05)
+            after = read_cluster_status(url)
+        t0 = time.perf_counter()
+        free_after = card_free_bytes(device)
+        while (free_after is not None
+               and free_after < free_before - MULTINODE_MEMORY_SLACK
+               and time.perf_counter() < t0 + 60):
+            time.sleep(0.2)
+            free_after = card_free_bytes(device)
+        memory_wait_s = time.perf_counter() - t0
+        with urllib.request.urlopen(url + "/metrics", timeout=30) as resp:
+            samples, malformed = metrics_format(resp.read().decode())
+
+        # The workflow: step 1 on the card, step 2 failing once.
+        workflow.init(os.path.join(storage, "workflows"))
+        log_path = os.path.join(storage, "k1_runs.jsonl")
+        step2_marker = os.path.join(storage, "step2_failed")
+        k1 = rt.remote(num_gpus=1)(workflow_k1_step)
+        check_step = rt.remote(workflow_check_step)
+
+        def dag():
+            return check_step.bind(k1.bind(shape, log_path, device),
+                                   step2_marker)
+
+        t0 = time.perf_counter()
+        try:
+            workflow.run(dag(), workflow_id="k1_durable", max_retries=0)
+            failed_first = False
+        except Exception:  # noqa: BLE001 — the planted failure
+            failed_first = True
+        first_run_s = time.perf_counter() - t0
+        statuses = [workflow.get_status("k1_durable")]
+        runs = [len(read_rows(log_path))]
+        reset_launches()
+        t0 = time.perf_counter()
+        resumed = workflow.resume("k1_durable")
+        resume_s = time.perf_counter() - t0
+        statuses.append(workflow.get_status("k1_durable"))
+        runs.append(len(read_rows(log_path)))
+        resume_launches = sum_launches(
+            [{"launches": dict(_kernels.LAUNCHES)}]
+            + read_rows(log_path)[runs[0]:])
+        straight = workflow.run(dag(), workflow_id="k1_straight")
+        step1_reports = read_rows(log_path)
+        runs.append(len(step1_reports))
+        out = resumed["output"]
+        wf = {"failed_first_run": failed_first, "statuses": statuses,
+              "step1_runs": runs, "step1_reports": step1_reports,
+              "resume_launches": resume_launches,
+              "first_run_s": first_run_s, "resume_s": resume_s,
+              "output": {"device": resumed["device"], "dtype": str(out.dtype),
+                         "shape": list(out.shape),
+                         "finite": resumed["finite"]},
+              "equal_to_uninterrupted": torch.equal(out,
+                                                    straight["output"])}
+
+        # The job: what its entrypoint saw of the card, and a stop.
+        status = client.wait_until_finish(job_id, timeout=300)
+        job_s = client.get_job_info(job_id)["updated_at"] - job_t0_wall
+        lines = client.get_job_logs(job_id).split()
+        long_id = client.submit_job(entrypoint="sleep 120",
+                                    submission_id="raysubmit_libraries_stop")
+        deadline = time.perf_counter() + 120
+        while (client.get_job_status(long_id) != "RUNNING"
+               and time.perf_counter() < deadline):
+            time.sleep(0.05)
+        stopped = client.stop_job(long_id)
+        job = {"status": status,
+               "return_code": client.get_job_info(job_id)["return_code"],
+               "entrypoint_cuda_available": lines[-1] if lines else None,
+               "submit_to_finish_s": job_s, "stop": stopped,
+               "stopped_status": client.wait_until_finish(long_id,
+                                                          timeout=60)}
+    finally:
+        dashboard.stop_dashboard()
+        rt.shutdown()
+        shutil.rmtree(storage, ignore_errors=True)
+    first = [r for r in rows if r["lr"] == TUNE_LRS[0]]
+    errs = {r["step"]: abs(r["loss"] - reference[r["step"] - 1])
+            / abs(reference[r["step"] - 1]) for r in first}
+    m = {"n_layers": cfg.n_layers, "batch": list(batch), "lrs": TUNE_LRS,
+         "steps": TUNE_STEPS, "rows": rows, "errors": grid.errors,
+         "iterations": {r.config["lr"]: r.metrics.get("training_iteration")
+                        for r in grid},
+         "best_lr": best.config["lr"],
+         "trial_processes": len({r["pid"] for r in rows}),
+         "reference_losses": reference, "train_first_loss": train_first_loss,
+         "first_loss_rel_err": abs(first[0]["loss"] - train_first_loss)
+         / abs(train_first_loss) if first else None,
+         "loss_rel_errs_vs_uninterrupted": errs,
+         "sweep_s": sweep_s, "driver_launches": driver_launches,
+         "dashboard_after": after, "metrics_samples": samples,
+         "metrics_malformed": malformed, "card_free_before": free_before,
+         "card_free_after": free_after, "memory_wait_s": memory_wait_s,
+         "workflow": wf, "workflow_shape": list(shape), "job": job}
+    checks = libraries_checks(m)
+    checks["no_dirs_left"] = copy_dirs(node) == []
+    emit("libraries", **m, trials=trial_summary(rows), checks=checks)
+    failed = [name for name, ok in checks.items() if not ok]
+    check(not failed, f"libraries checks failed: {failed}")
+    return {"tune_trials": sum_launches(rows),
+            "workflow_gpu_step": sum_launches(step1_reports)}
+
+
+def trial_summary(rows) -> list:
+    """Per trial process: its lr, steps, cold start, median step ms (its
+    first step, which the cold start holds, left out) and its
+    checkpoint's write or restore seconds."""
+    out = []
+    for pid in dict.fromkeys(r["pid"] for r in rows):
+        mine = [r for r in rows if r["pid"] == pid]
+        first = mine[0]
+        out.append({
+            "lr": first["lr"], "pid": pid,
+            "steps": [r["step"] for r in mine],
+            "cold_start_s": first["cold_start_s"],
+            "init_s": first["init_s"],
+            "process_age_at_entry_s": first["process_age_at_entry_s"],
+            "step_ms_median": statistics.median(
+                r["step_s"] for r in mine[1:] or mine) * 1e3,
+            "checkpoint_write_s": next((r["checkpoint_write_s"] for r in mine
+                                        if "checkpoint_write_s" in r), None),
+            "checkpoint_bytes": next((r["checkpoint_bytes"] for r in mine
+                                      if "checkpoint_bytes" in r), None),
+            **{key: first.get(key) for key in (
+                "restore_s", "restore_read_s", "restore_init_s")}})
+    return out
 
 
 # (dtype, T, tolerances) of one train step card vs CPU, normalized by each
@@ -4931,6 +5465,7 @@ def main() -> int:
     trained = phase_train(peaks)
     train_dp = phase_train_dp(peaks, trained[True]["losses"])
     train_feed = phase_train_feed(peaks)
+    libraries = phase_libraries(trained[True]["losses"][0])
     parallel = phase_parallel()
     phase_train_vs_cpu()
     phase_train_profile()
@@ -4949,9 +5484,11 @@ def main() -> int:
     # counted in its process), one GPT-2-small train step with remat
     # (the preset) and one without, the 5 steps of the Train worker and
     # the 5 fed ViT steps of the train_feed worker (each counted in its
-    # process), the parallel phase's tp=2 and fsdp=2 steps, Ulysses and
-    # pipelines (each summed over its 2 ranks' processes), one llama, ViT
-    # and MoE train step each, and one ViT classifier call.
+    # process), every step of the libraries phase's Tune trials (summed
+    # over the trials' processes) and its workflow's GPU step (summed
+    # over that step's runs), the parallel phase's tp=2 and fsdp=2 steps,
+    # Ulysses and pipelines (each summed over its 2 ranks' processes), one
+    # llama, ViT and MoE train step each, and one ViT classifier call.
     pool = {name: pool_actor[name] for name in serving}
     paths = {"serving": serving, "dag_fused_replays": dag_fused,
              "processor_pool_actor": pool, "multinode": multinode,
@@ -4959,7 +5496,7 @@ def main() -> int:
              "train": trained[True]["launches"],
              "train_no_remat": trained[False]["launches"],
              "train_dp_worker": train_dp["launches"],
-             "train_feed_worker": train_feed, **parallel,
+             "train_feed_worker": train_feed, **libraries, **parallel,
              "llama_train": llama["launches"], **vit, "moe_train": moe}
     by_path = {name: {path: launches[name]
                       for path, launches in paths.items()}

@@ -1379,6 +1379,11 @@ class PullManager:
                 self._inflight.pop(key, None)
             entry[0].set()
 
+    def in_flight(self, object_id) -> bool:
+        """A pull of ``object_id`` has started and not yet ended."""
+        with self._lock:
+            return object_id.binary() in self._inflight
+
     # -- connection pool (a LIST per peer: parallel range streams) -----
     def _acquire_conn(self, host: str, port: int) -> _PeerConn:
         with self._lock:

@@ -506,11 +506,14 @@ class Node:
         # Copies already pulled into the head store stay READY,
         # re-pointed at the head.
         head_hex = self.node_id.hex()
+        # A copy still being pulled from the dead node is no copy: its
+        # pull fails and removes it.
         self.gcs.objects.mark_node_lost(
             handle.node_id_hex,
             relocate=lambda oid, size:
                 (P.LOC_SHM, size, head_hex)
-                if self.store.contains(oid) else None)
+                if self.store.contains(oid)
+                and not self.pull_mgr.in_flight(oid) else None)
         self._fail_daemon_worker_proxies(handle)
 
     def _fail_daemon_worker_proxies(self, handle):
@@ -870,8 +873,51 @@ class Node:
             remaining = None if deadline is None else max(
                 0.0, deadline - time.monotonic())
             entries.append(self._ensure_ready(oid, remaining))
-        return [self._read_location(oid, e.location)
+        return [self._read_ready(oid, e.location, deadline)
                 for oid, e in zip(object_ids, entries)]
+
+    def _read_ready(self, oid: ObjectID, location: Tuple,
+                    deadline: Optional[float]) -> Any:
+        """Read a ready object. Its only copy may die with its node
+        between the get's readiness check and the pull; once the head
+        has handled that death the entry is LOST (rebuilt from its
+        lineage) or re-pointed at a head copy, and is read again."""
+        for _attempt in range(4):
+            try:
+                return self._read_location(oid, location)
+            except ObjectLostError:
+                if not self._await_source_death(oid, location, deadline):
+                    raise
+            remaining = None if deadline is None else max(
+                0.0, deadline - time.monotonic())
+            location = self._ensure_ready(oid, remaining).location
+        raise ObjectLostError(oid.hex(), "reconstruction attempts exhausted")
+
+    def _await_source_death(self, oid: ObjectID, location: Tuple,
+                            deadline: Optional[float]) -> bool:
+        """True once the head has handled the death of the node that
+        held ``location`` and the entry no longer points there. False
+        when the location is not another node's copy or the node is
+        alive: a failed pull from a live node is the caller's error."""
+        if (location[0] != P.LOC_SHM or len(location) < 3
+                or location[2] == self.node_id.hex()
+                or self.transfer_addr_of(location[2]) is not None):
+            return False
+        from .config import ray_config
+        # At most the head's own window for declaring a node dead.
+        until = time.monotonic() + (
+            float(ray_config.node_heartbeat_s)
+            * float(ray_config.node_heartbeat_miss_limit))
+        if deadline is not None:
+            until = min(until, deadline)
+        while True:
+            entry = self.gcs.objects.entry(oid)
+            if (entry is None or entry.state != gcs_mod.READY
+                    or entry.location != location):
+                return entry is not None
+            if time.monotonic() >= until:
+                return False
+            time.sleep(0.01)
 
     def get_locations(self, object_ids: List[ObjectID],
                       timeout: Optional[float] = None) -> List[Tuple]:

@@ -51,11 +51,12 @@ _OWN_FUNCTIONS = ("pp", "sp", "ep")
 _ROADMAP = "ROADMAP.md, Queue 1"
 
 
-def default_optimizer(params: List[torch.Tensor]) -> torch.optim.Optimizer:
-    """AdamW as ``optax.adamw(3e-4, weight_decay=0.01)``: optax's b1, b2
+def default_optimizer(params: List[torch.Tensor],
+                      lr: float = 3e-4) -> torch.optim.Optimizer:
+    """AdamW as ``optax.adamw(lr, weight_decay=0.01)``: optax's b1, b2
     and eps, moments in each param's dtype (its ``mu_dtype=None``), and
     the decay on every param (its ``mask=None``)."""
-    return torch.optim.AdamW(params, lr=3e-4, betas=(0.9, 0.999), eps=1e-8,
+    return torch.optim.AdamW(params, lr=lr, betas=(0.9, 0.999), eps=1e-8,
                              weight_decay=0.01)
 
 

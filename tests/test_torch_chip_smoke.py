@@ -1552,3 +1552,255 @@ class TestAutoscalePhase:
         assert "['k1_launched']" in str(err.value)
         assert '"final_statuses": {"TERMINATED": 1}' in \
             capsys.readouterr().out
+
+
+def _libraries_report():
+    """A libraries report as the card should give it: the first trial's
+    steps 1-4 in one process and 5-8 in its retry, the lr 2e-4 trial cut
+    after 3 steps, the lr 0 one after 4."""
+    ref = [10.9 - 0.3 * i for i in range(cs.TUNE_STEPS)]
+    rows = []
+    for lr, pid, steps in ((6e-4, 301, range(1, 5)), (6e-4, 302, range(5, 9)),
+                           (2e-4, 303, range(1, 4)), (0.0, 304, range(1, 5))):
+        for step in steps:
+            row = {"lr": lr, "step": step, "pid": pid,
+                   "loss": ref[step - 1] if lr == 6e-4 else 10.9,
+                   "step_s": 0.13, "cuda_visible_devices": "0",
+                   "gpu_ids": [0], "device_count": 1,
+                   "launches": {"flash_fwd": 24, "flash_bwd_dq": 12,
+                                "flash_bwd_dkv": 12}}
+            if step == steps[0]:
+                row.update(cold_start_s=8.0, init_s=6.0,
+                           process_age_at_entry_s=1.0,
+                           dashboard={"gpu_total": 1.0,
+                                      "gpu_available": 0.0, "nodes": 1})
+            if pid == 302:
+                row.update(restore_s=1.0, restored_from="checkpoint_000004",
+                           restored_digest="d4")
+            if step == 4:
+                row.update(checkpoint_write_s=1.5, checkpoint_bytes=741 << 20,
+                           saved_digest="d4")
+            rows.append(row)
+    k1 = {"launches": {"flash_fwd": 1, "flash_bwd_dq": 0,
+                       "flash_bwd_dkv": 0},
+          "finite": True, "cuda_visible_devices": "0", "max_norm_err": 4e-3}
+    return {
+        "n_layers": 12, "rows": rows, "errors": [],
+        "iterations": {6e-4: 8, 2e-4: 3, 0.0: 4}, "best_lr": 6e-4,
+        "trial_processes": 4, "reference_losses": ref,
+        "train_first_loss": ref[0],
+        "dashboard_after": {"gpu_total": 1.0, "gpu_available": 1.0,
+                            "nodes": 1},
+        "metrics_samples": 20, "metrics_malformed": [],
+        "card_free_before": 80 << 30, "card_free_after": (80 << 30) - 1,
+        "workflow_shape": [16, 12, 1024, 64],
+        "workflow": {
+            "statuses": ["FAILED", "SUCCESSFUL"], "step1_runs": [1, 1, 2],
+            "step1_reports": [k1, dict(k1)],
+            "resume_launches": {"flash_fwd": 0, "flash_bwd_dq": 0,
+                                "flash_bwd_dkv": 0},
+            "equal_to_uninterrupted": True,
+            "output": {"device": "cpu", "dtype": "torch.bfloat16",
+                       "shape": [16, 12, 1024, 64], "finite": True}},
+        "job": {"status": "SUCCEEDED", "return_code": 0,
+                "entrypoint_cuda_available": "False", "stop": True,
+                "stopped_status": "STOPPED"}}
+
+
+def _set_row(key, value, pid=None, step=None):
+    def change(m):
+        for row in m["rows"]:
+            if (pid is None or row["pid"] == pid) and \
+                    (step is None or row["step"] == step):
+                row[key] = value
+                return
+    return change
+
+
+def _drop_restored(m):
+    for row in m["rows"]:
+        row.pop("restored_from", None)
+
+
+class TestLibrariesPhase:
+    def test_report_accepted(self):
+        assert all(cs.libraries_checks(_libraries_report()).values())
+
+    @pytest.mark.parametrize("change,failed", [
+        (_set_row("cuda_visible_devices", ""), "pinned"),
+        (_set_row("device_count", 2, pid=303), "pinned"),
+        (_set_row("gpu_ids", [], pid=304), "pinned"),
+        (lambda m: m["iterations"].update({0.0: 8}), "asha_cut"),
+        (lambda m: m.update(best_lr=0.0), "asha_cut"),
+        (lambda m: m["iterations"].update({6e-4: 6}), "asha_cut"),
+        (_set_row("loss", 11.2, pid=301, step=1), "first_loss"),
+        (_set_row("loss", 9.0, pid=302, step=6), "resumed"),
+        (_drop_restored, "resumed"),
+        (_set_row("restored_digest", "d5", pid=302), "resumed"),
+        (_set_row("saved_digest", None, pid=301, step=4), "resumed"),
+        (_set_row("pid", 301, pid=302, step=5), "resumed"),  # no retry
+        (_set_row("launches", {"flash_fwd": 12, "flash_bwd_dq": 12,
+                               "flash_bwd_dkv": 12}, pid=303), "launches"),
+        (_set_row("dashboard", {"gpu_total": 1.0, "gpu_available": 1.0,
+                                "nodes": 1}, pid=304), "dashboard_during"),
+        (lambda m: m.update(trial_processes=5), "dashboard_during"),
+        (lambda m: m["dashboard_after"].update(gpu_available=0.0),
+         "dashboard_after"),
+        (lambda m: m.update(metrics_malformed=["up {x} 1 2"]),
+         "metrics_text"),
+        (lambda m: m.update(card_free_after=(80 << 30) - (600 << 20)),
+         "memory_back"),
+        (lambda m: m.update(card_free_after=None), "memory_back"),
+        (lambda m: m["workflow"].update(step1_runs=[1, 2, 3]),
+         "workflow_resume"),
+        (lambda m: m["workflow"]["resume_launches"].update(flash_fwd=1),
+         "workflow_resume"),
+        (lambda m: m["workflow"].update(equal_to_uninterrupted=False),
+         "workflow_resume"),
+        (lambda m: m["workflow"]["output"].update(device="cuda:0"),
+         "workflow_resume"),
+        (lambda m: m["workflow"].update(statuses=["FAILED", "FAILED"]),
+         "workflow_resume"),
+        (lambda m: m["workflow"]["step1_reports"][0]["launches"].update(
+            flash_fwd=0), "workflow_k1"),
+        (lambda m: m["workflow"]["step1_reports"][1].update(
+            max_norm_err=3e-2), "workflow_k1"),
+        (lambda m: m["job"].update(stopped_status="SUCCEEDED"), "job"),
+        (lambda m: m["job"].update(entrypoint_cuda_available=None), "job"),
+        (lambda m: m.update(errors=["RuntimeError('boom')"]), "no_errors"),
+    ])
+    def test_report_rejected(self, change, failed):
+        m = _libraries_report()
+        change(m)
+        checks = cs.libraries_checks(m)
+        assert [k for k, ok in checks.items() if not ok] == [failed]
+
+    @pytest.mark.parametrize("restore,losses,accepted", [
+        ("whole", "run", True),
+        ("moments_dropped", "run", False),
+        # a restore whose losses happen to stay inside the band
+        ("moments_dropped", "reference", False),
+    ])
+    def test_restore_is_held_to_the_saved_state(self, monkeypatch, tmp_path,
+                                                restore, losses, accepted):
+        """The trial's own restore at a tiny width on the CPU: a restore
+        that loads the params but leaves AdamW's moments and step counts
+        behind fails ``resumed``, by the state's digest."""
+        import torch
+
+        from ray_tpu_torch import train
+        from ray_tpu_torch.models import GPTConfig, make_train_step
+
+        cfg, lr = GPTConfig.tiny(), cs.TUNE_LRS[0]
+        ref = cs.uninterrupted_losses(cfg, "cpu", (2, 64), lr,
+                                      cs.TUNE_STEPS)
+        init_state, train_step = make_train_step(
+            cfg, optimizer=cs.tune_optimizer(lr), device="cpu")
+        tokens = cs.token_batch(cfg.vocab_size, 2, 64, device="cpu")
+        state = init_state(torch.Generator().manual_seed(0))
+        run = []
+        for _ in range(cs.TUNE_CHECKPOINT_AT):
+            state, m = train_step(state, tokens)
+            run.append(float(m["loss"]))
+        saved_digest = cs.train_state_digest(state)
+        checkpoint = train.Checkpoint.from_state(state, str(tmp_path))
+        if restore == "moments_dropped":
+            monkeypatch.setattr(torch.optim.Optimizer, "load_state_dict",
+                                lambda self, state_dict: None)
+        state, _ = cs.restore_trial_state(init_state, checkpoint, "cpu")
+        monkeypatch.undo()
+        restored_digest = cs.train_state_digest(state)
+        for _ in range(cs.TUNE_CHECKPOINT_AT, cs.TUNE_STEPS):
+            state, m = train_step(state, tokens)
+            run.append(float(m["loss"]))
+        assert run[:cs.TUNE_CHECKPOINT_AT + 1] == \
+            ref[:cs.TUNE_CHECKPOINT_AT + 1]
+
+        m = _libraries_report()
+        m.update(reference_losses=ref, train_first_loss=ref[0])
+        for row in m["rows"]:
+            if row["lr"] == cs.TUNE_LRS[0]:
+                row["loss"] = (run if losses == "run" else ref)[
+                    row["step"] - 1]
+                if "saved_digest" in row:
+                    row["saved_digest"] = saved_digest
+                if "restored_digest" in row:
+                    row["restored_digest"] = restored_digest
+        failed = [k for k, ok in cs.libraries_checks(m).items() if not ok]
+        assert failed == ([] if accepted else ["resumed"])
+
+    def test_launches_summed_over_trial_processes(self):
+        rows = _libraries_report()["rows"]
+        assert len(rows) == 15
+        assert cs.sum_launches(rows) == {"flash_fwd": 24 * 15,
+                                         "flash_bwd_dq": 12 * 15,
+                                         "flash_bwd_dkv": 12 * 15}
+        assert cs.sum_launches([]) == {}
+
+    def test_trial_rows_and_summary(self, tmp_path):
+        """Rows read from each trial's progress.jsonl, tagged with the
+        trial; the summary a process each, the retry with its restore."""
+        import json
+        import types
+
+        rows = _libraries_report()["rows"]
+        grid = []
+        for trial, pids in (("trial_a", (301, 302)), ("trial_b", (303,)),
+                            ("trial_c", (304,)), ("trial_d", ())):
+            path = tmp_path / trial
+            path.mkdir()
+            mine = [r for r in rows if r["pid"] in pids]
+            if mine:
+                (path / "progress.jsonl").write_text(
+                    "".join(json.dumps(r) + "\n" for r in mine))
+            grid.append(types.SimpleNamespace(path=str(path)))
+        got = cs.trial_rows(grid)
+        assert [r["trial"] for r in got] == ["trial_a"] * 8 + \
+            ["trial_b"] * 3 + ["trial_c"] * 4
+        assert [dict(r, trial=None) for r in got] == [
+            dict(r, trial=None) for r in rows]
+        summary = cs.trial_summary(got)
+        assert [(s["pid"], s["steps"][0], s["restore_s"],
+                 s["checkpoint_write_s"]) for s in summary] == [
+            (301, 1, None, 1.5), (302, 5, 1.0, None), (303, 1, None, None),
+            (304, 1, None, 1.5)]
+        assert all(s["step_ms_median"] == pytest.approx(130.0)
+                   for s in summary)
+
+    def test_metrics_format(self):
+        text = ("# HELP up x\n# TYPE up gauge\nup 1\n"
+                'scheduler_queue_depth{node_id="ab"} 0.0\n\n'
+                "bad line here\n")
+        assert cs.metrics_format(text) == (3, ["bad line here"])
+
+    def test_process_age(self):
+        """This process's age from /proc: positive, and at least what
+        it has lived since the test began."""
+        t0 = time.perf_counter()
+        time.sleep(0.05)
+        age = cs.process_age_s()
+        assert age >= time.perf_counter() - t0 - 0.02 and age > 0
+
+    def test_phase_on_the_cpu(self, capsys):
+        """The whole phase at a tiny width on the CPU, the head's GPU
+        faked: every check but those that need the card (the trials'
+        device count, the kernels' launches, the card's memory, the
+        workflow step's K1) passes."""
+        import json
+
+        from ray_tpu_torch.models import GPTConfig
+
+        cfg = GPTConfig.tiny()
+        first = cs.uninterrupted_losses(cfg, "cpu", (2, 64),
+                                        cs.TUNE_LRS[0], 1)[0]
+        with pytest.raises(AssertionError) as err:
+            cs.phase_libraries(first, cfg, "cpu", batch=(2, 64),
+                               shape=(1, 2, 64, 16))
+        assert "['pinned', 'launches', 'memory_back', 'workflow_k1']" in \
+            str(err.value)
+        (line,) = [x for x in capsys.readouterr().out.splitlines()
+                   if x.startswith('{"phase": "libraries"')]
+        m = json.loads(line)
+        assert m["trial_processes"] == 4
+        assert m["job"]["entrypoint_cuda_available"] == "False"
+        assert [t["steps"][0] for t in m["trials"]] == [1, 5, 1, 1]

@@ -14,6 +14,7 @@ import shutil
 import subprocess
 import sys
 import textwrap
+import uuid
 
 import numpy as np
 import pytest
@@ -29,7 +30,8 @@ REF = os.path.join(REPO, "ray_tpu")
 # daemon.py, usage.py and test_utils.py).
 COPIED = ("api.py", "exceptions.py", "_private", "_native", "util", "dag",
           "serve", "data", "train", "rllib/utils", "rllib/connectors",
-          "rllib/offline", "cluster_utils.py", "autoscaler")
+          "rllib/offline", "cluster_utils.py", "autoscaler", "tune", "air",
+          "workflow", "job", "dashboard")
 # Keys of the reference's TPU detection that the port's GPU detection
 # replaces (``_private/resources.py``): RAY_TPU_<name> -> its RTT_ key,
 # or None where the port has no counterpart (GCE metadata serves TPU VMs).
@@ -363,6 +365,52 @@ class TestStaticIsolation:
             assert not any(fnmatch.fnmatch(d, g) for g in globs
                            for d in [theirs["session"], theirs["store"],
                                      *theirs["daemon"]])
+
+    def test_library_paths_and_keys_are_the_ports(self, tmp_path,
+                                                  monkeypatch):
+        """The workflow storage (its default and its environment key), the
+        job's log file and the job-id key its entrypoint reads are the
+        port's own, so both packages' libraries run side by side."""
+        from ray_tpu import job as ref_job
+        from ray_tpu import workflow as ref_workflow
+        from ray_tpu_torch import job, workflow
+        from ray_tpu_torch._private.config import temp_root
+
+        monkeypatch.setenv("HOME", str(tmp_path))
+        for key in ("RTT_WORKFLOW_STORAGE", "RAY_TPU_WORKFLOW_STORAGE"):
+            monkeypatch.delenv(key, raising=False)
+        for module in (workflow, ref_workflow):
+            monkeypatch.setattr(module, "_storage_dir", None)
+        assert workflow.init() == str(tmp_path / ".cache/rtt/workflows")
+        assert ref_workflow.init() == str(
+            tmp_path / ".cache/ray_tpu/workflows")
+        monkeypatch.setenv("RTT_WORKFLOW_STORAGE", str(tmp_path / "ours"))
+        assert workflow.init() == str(tmp_path / "ours")
+        assert ref_workflow.init() == str(
+            tmp_path / ".cache/ray_tpu/workflows")
+
+        # A unique id: ray_tpu's log lies under the fixed /tmp, which
+        # another run of this test on the machine may share.
+        job_id = f"raysubmit_iso_{uuid.uuid4().hex[:8]}"
+        logs = {}
+        for module in (job, ref_job):
+            monkeypatch.setattr(module.JobSupervisor, "_set_status",
+                                lambda self, *a, **k: None)
+            sup = module.JobSupervisor(
+                job_id, 'echo "rtt=$RTT_JOB_ID '
+                'ray_tpu=$RAY_TPU_JOB_ID"', {"working_dir": str(tmp_path)},
+                None)
+            try:
+                assert sup.run() == "SUCCEEDED"
+                with open(sup.log_path) as f:
+                    logs[module.__name__] = (sup.log_path, f.read())
+            finally:
+                os.unlink(sup.log_path)
+        assert logs["ray_tpu_torch.job"] == (
+            os.path.join(temp_root(), f"rtt_job_{job_id}.log"),
+            f"rtt={job_id} ray_tpu=\n")
+        assert logs["ray_tpu.job"] == (f"/tmp/ray_tpu_job_{job_id}.log",
+                                       f"rtt= ray_tpu={job_id}\n")
 
     def test_import_loads_no_torch(self):
         # The text stages and the Processor too: their pool actors start

@@ -420,6 +420,23 @@ def test_daemon_kill_actor_restart():
     assert assert_same(_both(case)) == (True, 1, 0, [1])
 
 
+def wait_lost(side, node_id: str, object_hex: str) -> None:
+    """Until the head has handled the killed node's death: the node
+    reported dead and the object whose only copy it held lost. A get
+    issued before that races the death handling: it pulls from the dying
+    node, and the death then re-points the object at a head copy whose
+    bytes never arrived."""
+    deadline = time.monotonic() + TIMEOUT
+    while True:
+        alive = {r["node_id"]: r["alive"] for r in side.state_api.list_nodes()}
+        state = {r["object_id"]: r["state"]
+                 for r in side.state_api.list_objects()}
+        if not alive.get(node_id, False) and state.get(object_hex) == "lost":
+            return
+        assert time.monotonic() < deadline, (alive, state.get(object_hex))
+        time.sleep(0.05)
+
+
 def test_object_recovery_after_node_loss():
     """An object whose only copy lived on a dead node is rebuilt from its
     lineage on the next get, on the node that is left."""
@@ -437,13 +454,39 @@ def test_object_recovery_after_node_loss():
             ray.wait([ref], timeout=TIMEOUT)
             side.add_node(num_cpus=2, resources={"R": 2})
             side.nodes[1].proc.kill()
-            time.sleep(1.0)
+            wait_lost(side, side.nodes[1].node_id, ref.id.hex())
             arr, node = side.get(ref)
             return arr.shape, float(arr[0]), side.where(node)
         finally:
             side.shutdown()
 
     assert assert_same(_both(case)) == ((200_000,), 9.0, 0)
+
+
+def test_get_during_node_death_rebuilds_the_object():
+    """The port only: a get issued at once after the kill, while the head
+    is still handling the node's death, waits for that handling and
+    rebuilds the object from its lineage. ``ray_tpu``'s get raises
+    ObjectLostError there: its pull from the dead node fails, and the
+    error reaches the caller (ROADMAP Queue 3)."""
+    side = _victim_side("ray_tpu_torch")
+    try:
+        ray = side.ray
+
+        @ray.remote(resources={"R": 1}, max_retries=2)
+        def produce():
+            return (np.full(200_000, 9.0),
+                    ray.get_runtime_context().get_node_id())
+
+        ref = produce.remote()
+        ray.wait([ref], timeout=TIMEOUT)
+        side.add_node(num_cpus=2, resources={"R": 2})
+        side.nodes[1].proc.kill()
+        arr, node = side.get(ref)
+        assert (arr.shape, float(arr[0]), side.where(node)) == (
+            (200_000,), 9.0, 0)
+    finally:
+        side.shutdown()
 
 
 # -- the port only: GPUs on daemon nodes, and reaping -------------------

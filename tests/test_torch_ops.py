@@ -473,6 +473,25 @@ class TestIsolation:
         assert [m for m in out if _forbidden(m)] == []
         assert [m for m in out if m.split(".")[0] == "torch"] == []
 
+    def test_libraries_import_leaves_jax_and_ray_tpu_out(self):
+        # Tune (its searchers and schedulers included), AIR, Workflow,
+        # Jobs and the dashboard reach neither jax nor ray_tpu, nor torch:
+        # a trial or a job supervisor loads torch only if its code does.
+        code = (
+            "import sys\n"
+            "import ray_tpu_torch.tune, ray_tpu_torch.tune.searchers\n"
+            "import ray_tpu_torch.air, ray_tpu_torch.workflow\n"
+            "import ray_tpu_torch.job, ray_tpu_torch.dashboard\n"
+            "print('\\n'.join(sys.modules))\n")
+        out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                             capture_output=True, text=True, timeout=120,
+                             check=True).stdout.split()
+        assert {"ray_tpu_torch.tune.tuner", "ray_tpu_torch.tune.schedulers",
+                "ray_tpu_torch.air.session", "ray_tpu_torch.workflow.events",
+                "ray_tpu_torch.job", "ray_tpu_torch.dashboard"} <= set(out)
+        assert [m for m in out if _forbidden(m)] == []
+        assert [m for m in out if m.split(".")[0] == "torch"] == []
+
     def test_device_plumbing_import_leaves_jax_and_ray_tpu_out(self,
                                                               tmp_path):
         # The feed, the store's tensor landing, the fused DAG, profiling
