@@ -9,13 +9,13 @@ It builds the port's kernels from ``ray_tpu_torch/ops/csrc`` (nvcc,
 sm_90a), holds each kernel against its plain PyTorch version on the card,
 drives the port's serving paths (in process, and hosted by the port's own
 control plane: Serve's build_llm_app and Data's Processor, also on a
-node daemon that holds the card and on one the autoscaler launches) and
-its train
-steps at full width (GPT-2 small, the llama bench shape, ViT-B/16, the MoE
-decoder; GPT-2 small also in Tune trials), the ResNet-50 predictor, the
-libraries (Tune, the dashboard, Workflow, Jobs) and RLlib (PPO, SAC, TD3,
-CQL, DreamerV3 and the rest), and prints one JSON line per
-phase:
+node daemon that holds the card, on one the autoscaler launches, and on
+a node of a cluster the CLI starts, driven through the client link) and
+its train steps at full width (GPT-2 small, the llama bench shape,
+ViT-B/16, the MoE decoder; GPT-2 small also in Tune trials), the
+ResNet-50 predictor, the libraries (Tune, the dashboard, Workflow, Jobs,
+Pool) and RLlib (PPO, SAC, TD3, CQL, DreamerV3 and the rest), and prints
+one JSON line per phase:
 
   1. device         the card (nvidia-smi name and power limit), torch, CUDA
   2. build          kernel build seconds and ptxas's register, spill and
@@ -115,7 +115,29 @@ phase:
                     and the daemon's process group is gone: seconds from
                     submit to registration and to the result, and from
                     idle to termination
- 11. train          make_train_step(GPTConfig.gpt2_small()) at B=16,
+     cli_client     a cluster the CLI starts: a head (python -m
+                    ray_tpu_torch start, RTT_NUM_GPUS=0) and one node
+                    (start --address) that detects the card; status and
+                    list nodes through the client address (GPU 1, two
+                    alive nodes); this process as a client driver
+                    (util.client.connect) submits the GPT stage (GPT-2
+                    small, seed-0 weights, 16 prompts, 8 steps) as a
+                    num_gpus=1 task, cold then warm: on the CLI's node,
+                    pinned to one card, 96 K1 launches in its worker,
+                    tokens equal to the in-process stage's; a 64 MB bf16
+                    CUDA tensor nested in a dict as a task's argument,
+                    reaching it as a CPU tensor with the driver's sum;
+                    no process of the head holding a context on the card
+                    or any NVIDIA device file (its /proc fds and maps,
+                    the stage's worker the control);
+                    util.multiprocessing.Pool with one actor pinned to the
+                    card running K1 at GPT-2's shape on 4 seeded inputs
+                    within TOL_BF16_NORM, 4 launches there; after SIGINT
+                    to the head and SIGTERM to the node, no process or
+                    directory of either left and the card's memory back:
+                    head start, node join, connect, stage call, tensor
+                    trip, Pool and teardown times
+ 11. train         make_train_step(GPTConfig.gpt2_small()) at B=16,
                     S=1024, bf16, remat on (the preset) and off: step ms,
                     tokens/s, MFU, peak memory, the losses, and K1, K2, K3
                     launches counted over exactly one step
@@ -2028,16 +2050,17 @@ def phase_multinode(cfg=None, device: str = "cuda"):
     return worker
 
 
-def attention_on_node(shape, causal: bool, device: str = "cuda") -> dict:
-    """K1 through flash_attention at ``shape`` (bf16, seed 0) on the card
-    of the process this runs in (``device``: the CPU in the tests),
-    against mha_reference on the same inputs: the error over the
+def attention_on_node(shape, causal: bool, device: str = "cuda",
+                      seed: int = 0) -> dict:
+    """K1 through flash_attention at ``shape`` (bf16, from ``seed``) on
+    the card of the process this runs in (``device``: the CPU in the
+    tests), against mha_reference on the same inputs: the error over the
     reference's largest magnitude, K1's launches in this process over the
     call, and where it ran."""
-    return attention_run(shape, causal, device)[1]
+    return attention_run(shape, causal, device, seed)[1]
 
 
-def attention_run(shape, causal: bool, device: str = "cuda"):
+def attention_run(shape, causal: bool, device: str = "cuda", seed: int = 0):
     """attention_on_node's call: (K1's output, its report)."""
     import torch
 
@@ -2045,7 +2068,7 @@ def attention_run(shape, causal: bool, device: str = "cuda"):
     from ray_tpu_torch.ops import _kernels, flash_attention
     from ray_tpu_torch.ops.attention import mha_reference
 
-    gen = torch.Generator(device=device).manual_seed(0)
+    gen = torch.Generator(device=device).manual_seed(seed)
     q, k, v = (torch.randn(shape, generator=gen, device=device,
                            dtype=torch.bfloat16) for _ in range(3))
     before = dict(_kernels.LAUNCHES)
@@ -2156,6 +2179,414 @@ def phase_autoscale(shape=GPT2_SHAPE, device: str = "cuda"):
     failed = [name for name, ok in checks.items() if not ok]
     check(not failed, f"autoscale checks failed: {failed}")
     return result["launches"]
+
+
+# The cli_client phase: a cluster started by the CLI (a head that holds
+# no GPU, and one node that detects the card), driven from this process
+# through the client link; then Pool on the card in this process's own
+# runtime. Each CLI process starts a process group of its own, so its
+# workers are counted by group_members after teardown.
+CLI_TIMEOUT = 120.0
+CLI_TEARDOWN_S = 60.0
+POOL_INPUTS = 4
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def parse_head_banner(lines) -> dict:
+    """The addresses and token the CLI's head prints when it has started
+    (``python -m ray_tpu_torch start``): keys client, cluster, token and
+    dashboard, each present once its line has been printed."""
+    keys = {"client": "client address", "cluster": "cluster address",
+            "token": "cluster token", "dashboard": "dashboard"}
+    out = {}
+    for line in lines:
+        for key, label in keys.items():
+            m = re.match(rf"\s*{label}:\s+(\S+)", line)
+            if m:
+                out[key] = m.group(1)
+    return out
+
+
+def parse_status(text: str) -> dict:
+    """``status``'s output: {resource: [available, total]} and the count
+    of alive nodes."""
+    out = {"resources": {}, "nodes": None}
+    for line in text.splitlines():
+        m = re.match(r"\s*(\S+): (\S+)/(\S+) available$", line)
+        if m:
+            out["resources"][m.group(1)] = [float(m.group(2)),
+                                            float(m.group(3))]
+        m = re.match(r"\s*nodes: (\d+)$", line)
+        if m:
+            out["nodes"] = int(m.group(1))
+    return out
+
+
+class CliProcess:
+    """A ``python -m ray_tpu_torch`` process in a process group of its
+    own, its output read by a thread until it closes (so a full pipe
+    never blocks it)."""
+
+    def __init__(self, args, env: dict):
+        import threading
+
+        self.lines = []
+        self.proc = subprocess.Popen(
+            [sys.executable, "-m", "ray_tpu_torch", *args], cwd=REPO,
+            env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True, start_new_session=True)
+        self.pid = self.proc.pid
+        self._reader = threading.Thread(target=self._read, daemon=True)
+        self._reader.start()
+
+    def _read(self):
+        for line in self.proc.stdout:
+            self.lines.append(line.rstrip("\n"))
+
+    def wait_for(self, done, timeout: float = CLI_TIMEOUT) -> float:
+        """Seconds until ``done(lines)`` holds; fails if the process ends
+        first or the deadline passes."""
+        t0 = time.perf_counter()
+        while not done(self.lines):
+            check(self.proc.poll() is None,
+                  f"CLI process exited {self.proc.returncode}: "
+                  f"{self.lines[-20:]}")
+            check(time.perf_counter() - t0 < timeout,
+                  f"CLI process printed no more within {timeout} s: "
+                  f"{self.lines[-20:]}")
+            time.sleep(0.02)
+        return time.perf_counter() - t0
+
+    def stop(self, sig, timeout: float):
+        """Send ``sig``; the exit code, or None if it outlived ``timeout``
+        (then it and its group are killed)."""
+        import signal
+
+        self.proc.send_signal(sig)
+        try:
+            return self.proc.wait(timeout=timeout)
+        except subprocess.TimeoutExpired:
+            os.killpg(self.pid, signal.SIGKILL)
+            self.proc.wait(timeout=30)
+            return None
+
+
+def cli_env(**keys) -> dict:
+    """This process's environment for a CLI process, with ``keys`` set
+    (None removes a key) and the checkout on its path."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [REPO] + [p for p in env.get("PYTHONPATH", "").split(os.pathsep)
+                  if p])
+    for key, value in keys.items():
+        if value is None:
+            env.pop(key, None)
+        else:
+            env[key] = str(value)
+    return env
+
+
+def run_cli(args, env: dict) -> tuple:
+    """One short CLI command: (exit code, its standard output)."""
+    out = subprocess.run([sys.executable, "-m", "ray_tpu_torch", *args],
+                         cwd=REPO, env=env, capture_output=True, text=True,
+                         timeout=CLI_TIMEOUT)
+    return out.returncode, out.stdout
+
+
+def client_stage_call(cfg, prompts, steps: int, device: str = "cuda"):
+    """What the client submits as a num_gpus=1 task: the GPT stage at
+    ``cfg``'s width built from seed-0 weights (drawn on the CPU, as
+    phase_multinode draws them) on ``device``, called once on
+    ``prompts`` with K1's launches counted in this process
+    (counting_stage); with where it ran."""
+    import numpy as np
+    import torch
+
+    import ray_tpu_torch as rt
+    from ray_tpu_torch.llm import TokenizeStage
+    from ray_tpu_torch.models import gpt_init
+
+    t0 = time.perf_counter()
+    params = gpt_init(cfg, torch.Generator().manual_seed(0), "cpu")
+    stage = counting_stage()(params=params, config=cfg,
+                             max_new_tokens=steps, device=device)
+    build_s = time.perf_counter() - t0
+    out = stage(TokenizeStage(max_length=cfg.max_seq_len)(
+        {"prompt": prompts}))
+    return {"tokens": [np.asarray(t) for t in out["generated_tokens"]],
+            "launches": {k[len("launches_"):]: int(v[0])
+                         for k, v in out.items()
+                         if k.startswith("launches_")},
+            "pid": os.getpid(), "pgid": os.getpgid(0),
+            "node": rt.get_runtime_context().get_node_id(),
+            "cuda_visible_devices": os.environ.get("CUDA_VISIBLE_DEVICES"),
+            "build_s": build_s, "stage_s": float(out["stage_s"][0])}
+
+
+def sum_on_card(payload, device: str = "cuda") -> dict:
+    """What the client's tensor task runs: the device the nested tensor
+    arrived on, and its f32 sum on ``device``."""
+    import ray_tpu_torch as rt
+
+    t = payload["x"]
+    return {"arrived_on": str(t.device), "dtype": str(t.dtype),
+            "sum": float(t.to(device).float().sum()),
+            "node": rt.get_runtime_context().get_node_id(),
+            "cuda_visible_devices": os.environ.get("CUDA_VISIBLE_DEVICES")}
+
+
+def cuda_files(pid: int) -> dict:
+    """The NVIDIA device files a process has open or mapped: cuInit opens
+    /dev/nvidiactl, /dev/nvidia<N> and /dev/nvidia-uvm, and a context
+    maps /dev/nvidia-uvm too (``import torch`` alone maps libcuda and
+    opens none). nvidia-smi's compute apps cannot say this: in a
+    container it lists processes by host pids."""
+    fds, maps = set(), set()
+    try:
+        for fd in os.listdir(f"/proc/{pid}/fd"):
+            try:
+                target = os.readlink(f"/proc/{pid}/fd/{fd}")
+            except OSError:
+                continue
+            if target.startswith("/dev/nvidia"):
+                fds.add(target)
+        with open(f"/proc/{pid}/maps") as f:
+            for line in f:
+                if "/dev/nvidia" in line:
+                    maps.add(line.split()[-1])
+    except OSError:
+        pass
+    return {"fds": sorted(fds), "maps": sorted(maps)}
+
+
+def one_card_id(visible) -> bool:
+    return isinstance(visible, str) and re.fullmatch(r"\d+", visible) \
+        is not None
+
+
+def cli_client_checks(m: dict) -> dict:
+    """A cli_client report against what the phase requires, by name: the
+    CLI's status shows the card once, on the node, and two alive nodes;
+    both stage calls through the client ran on the CLI's node, in its
+    process group, pinned to one card, with 96 K1 launches each and the
+    in-process stage's tokens; the CUDA tensor reached the task as a CPU
+    tensor with the driver's sum; no process of the head has opened the
+    card (while the stage's worker, the control, maps it); Pool's K1 outputs in the band, 4 launches in one pool
+    actor; nothing of either CLI process left, and the card's memory
+    back."""
+    expected = {name: n * PROCESSOR_STEPS for name, n in expected_launches(
+        m["n_layers"], remat=False, train=False).items()}
+    calls, tensor, pool = m["stage_calls"], m["tensor"], m["pool"]
+    head_pids = set(m["head_group"])
+    return {
+        "cli_status": m["status"]["resources"].get("GPU", [None])[1] == 1.0
+        and m["status"]["nodes"] == 2 and m["listed_alive"] == 2
+        and m["gpus_by_node"] == {"head": 0.0, "node": 1.0}
+        and m["status_rc"] == m["list_rc"] == 0,
+        "stage_on_node": len(calls) == 2 and all(
+            c["node"] == m["node_id"] and c["pgid"] == m["node_pid"]
+            and c["pid"] not in head_pids | {m["driver_pid"], m["node_pid"]}
+            and one_card_id(c["cuda_visible_devices"]) for c in calls),
+        "launches": all(c["launches"] == expected for c in calls),
+        "tokens_equal": all(c["equal_rows"] == c["rows"] == 16
+                            for c in calls),
+        "tensor": tensor["arrived_on"] == "cpu"
+        and tensor["dtype"] == "torch.bfloat16"
+        and tensor["sum"] == m["driver_sum"]
+        and tensor["node"] == m["node_id"]
+        and one_card_id(tensor["cuda_visible_devices"]),
+        "head_no_context": m["head_cuda_files"] == {}
+        and "/dev/nvidia-uvm" in m["worker_cuda_files"]["maps"],
+        "pool_in_band": len(pool["rows"]) == POOL_INPUTS and all(
+            r["finite"] and r["max_norm_err"] <= TOL_BF16_NORM
+            for r in pool["rows"]),
+        "pool_launches": pool["launches"] == {
+            "flash_fwd": POOL_INPUTS, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
+        and len(pool["pids"]) == 1 and m["driver_pid"] not in pool["pids"]
+        and all(one_card_id(r["cuda_visible_devices"])
+                for r in pool["rows"]),
+        "teardown": m["head_exit"] == 0 and m["node_exit"] == 0
+        and m["dirs_during"] == {"head": 2, "node": 2}
+        and m["left_processes"] == [] and m["left_dirs"] == [],
+        "memory_back": m["card_free_after"] is not None
+        and m["card_free_after"]
+        >= m["card_free_before"] - MULTINODE_MEMORY_SLACK}
+
+
+def pool_on_card(shape, device: str) -> dict:
+    """util.multiprocessing.Pool in this process's own runtime, its one
+    actor pinned to the card: K1 at ``shape`` on POOL_INPUTS seeded
+    inputs against mha_reference (counted call), then the same map again
+    (timed warm)."""
+    import functools
+
+    import ray_tpu_torch as rt
+    from ray_tpu_torch.util.multiprocessing import Pool
+
+    rt.init(num_cpus=2, num_gpus=1)
+    try:
+        with Pool(processes=1, ray_remote_args={"num_gpus": 1}) as pool:
+            run = functools.partial(attention_on_node, shape, True, device)
+            t0 = time.perf_counter()
+            rows = pool.map(run, range(POOL_INPUTS))
+            cold_ms = (time.perf_counter() - t0) * 1e3
+            t0 = time.perf_counter()
+            pool.map(run, range(POOL_INPUTS))
+            warm_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        rt.shutdown()
+    launches = {}
+    for r in rows:
+        for name, n in r["launches"].items():
+            launches[name] = launches.get(name, 0) + n
+    return {"shape": list(shape), "rows": rows, "launches": launches,
+            "pids": sorted({r["pid"] for r in rows}),
+            "cold_ms": cold_ms, "warm_ms": warm_ms}
+
+
+def phase_cli_client(cfg=None, device: str = "cuda", shape=GPT2_SHAPE):
+    """A cluster the CLI starts: a head (``python -m ray_tpu_torch start``
+    with RTT_NUM_GPUS=0) and one node (``start --address``) that detects
+    the card; ``status`` and ``list nodes`` read through the client
+    address; this process connects as a client driver and submits the GPT
+    stage (phase_multinode's seed-0 weights, 16 prompts, 8 steps) as a
+    num_gpus=1 task twice, cold then warm, against the in-process stage;
+    a 64 MB bf16 CUDA tensor nested in a dict goes to a num_gpus=1 task
+    through the link; then Pool on the card in this process's runtime;
+    then SIGINT to the head and SIGTERM to the node, after which nothing
+    of either may be left. Returns K1's launches on the client's path
+    (the cold call, counted in the node's worker) and Pool's. (``cfg``,
+    ``device`` and ``shape`` are for the CPU tests, which run it small;
+    there the node's GPU is faked.)"""
+    import signal
+
+    import numpy as np
+    import torch
+
+    from ray_tpu_torch._private.test_utils import group_members, owned_dirs
+    from ray_tpu_torch.llm import GPTInferenceStage, TokenizeStage
+    from ray_tpu_torch.models import GPTConfig, gpt_init
+    from ray_tpu_torch.util.client import connect
+
+    t_phase = time.perf_counter()
+    cfg = cfg or GPTConfig.gpt2_small()
+    prompts = _prompts(16, 600, 1024)
+    local = GPTInferenceStage(
+        params=gpt_init(cfg, torch.Generator().manual_seed(0), "cpu"),
+        config=cfg, max_new_tokens=PROCESSOR_STEPS, device=device)
+    batch = TokenizeStage(max_length=cfg.max_seq_len)({"prompt": prompts})
+    local(batch)  # warm-up
+    t0 = time.perf_counter()
+    want = local(batch)["generated_tokens"]
+    local_s = time.perf_counter() - t0
+    del local
+    free_before = card_free_bytes(device)
+
+    head = CliProcess(
+        ["start", "--host", "127.0.0.1", "--port", str(free_port()),
+         "--dashboard-port", str(free_port()), "--num-cpus", "2"],
+        cli_env(RTT_NUM_GPUS=0))
+    node = None
+    m = {"n_layers": cfg.n_layers, "driver_pid": os.getpid(),
+         "head_pid": head.pid, "in_process_stage_s": local_s,
+         "card_free_before": free_before}
+    try:
+        m["head_start_s"] = head.wait_for(
+            lambda lines: "dashboard" in parse_head_banner(lines))
+        banner = parse_head_banner(head.lines)
+        m["banner"] = banner
+        # The node detects its GPUs; on the CPU one is faked.
+        node = CliProcess(
+            ["start", "--address", banner["cluster"],
+             "--token-hex", banner["token"]],
+            cli_env(RTT_NUM_GPUS=None if device == "cuda" else 1))
+        m["node_pid"] = node.pid
+        m["node_join_s"] = node.wait_for(
+            lambda lines: any("node daemon joined" in x for x in lines))
+        token_env = cli_env(RTT_CLUSTER_TOKEN_HEX=banner["token"])
+        m["status_rc"], text = run_cli(
+            ["status", "--address", banner["client"]], token_env)
+        m["status"] = parse_status(text)
+        m["list_rc"], text = run_cli(
+            ["list", "nodes", "--address", banner["client"]], token_env)
+        nodes = [n for n in json.loads(text) if n.get("alive", True)]
+        m["listed_alive"] = len(nodes)
+        m["node_id"] = next((n["node_id"] for n in nodes
+                             if not n.get("is_head")), None)
+        m["gpus_by_node"] = {
+            ("head" if n.get("is_head") else "node"):
+            n["resources_total"].get("GPU", 0.0) for n in nodes}
+        m["dirs_during"] = {"head": len(owned_dirs(head.pid)),
+                            "node": len(owned_dirs(node.pid))}
+
+        t0 = time.perf_counter()
+        conn = connect(banner["client"], token=banner["token"])
+        m["connect_s"] = time.perf_counter() - t0
+        try:
+            stage_call = conn.remote(client_stage_call).options(num_gpus=1)
+            calls = []
+            for _ in ("cold", "warm"):
+                t0 = time.perf_counter()
+                out = conn.get(stage_call.remote(
+                    cfg, prompts, PROCESSOR_STEPS, device),
+                    timeout=CLI_TIMEOUT * 5)
+                out["client_s"] = time.perf_counter() - t0
+                got = out.pop("tokens")
+                out["rows"] = len(got)
+                out["equal_rows"] = sum(bool(np.array_equal(a, b))
+                                        for a, b in zip(got, want))
+                calls.append(out)
+            m["stage_calls"] = calls
+
+            x = seeded_bf16(MULTINODE_TENSOR_ELEMENTS, device)
+            m["driver_sum"] = float(x.float().sum())
+            summed = conn.remote(sum_on_card).options(num_gpus=1)
+            t0 = time.perf_counter()
+            m["tensor"] = conn.get(summed.remote({"x": x}, device),
+                                   timeout=CLI_TIMEOUT)
+            m["tensor_trip_s"] = time.perf_counter() - t0
+            m["tensor_bytes"] = MULTINODE_TENSOR_ELEMENTS * 2
+            del x
+            m["head_group"] = group_members(head.pid)
+            m["head_cuda_files"] = {
+                pid: files for pid in m["head_group"]
+                for files in [cuda_files(pid)] if files["fds"] or
+                files["maps"]}
+            m["worker_cuda_files"] = cuda_files(calls[-1]["pid"])
+        finally:
+            conn.close()
+
+        m["pool"] = pool_on_card(shape, device)
+    finally:
+        t0 = time.perf_counter()
+        m["head_exit"] = head.stop(signal.SIGINT, CLI_TEARDOWN_S)
+        m["node_exit"] = node.stop(signal.SIGTERM, CLI_TEARDOWN_S) \
+            if node is not None else None
+        pids = [head.pid] + ([node.pid] if node is not None else [])
+        deadline = time.perf_counter() + CLI_TEARDOWN_S
+        while any(group_members(p) or owned_dirs(p) for p in pids) and \
+                time.perf_counter() < deadline:
+            time.sleep(0.05)
+        m["teardown_s"] = time.perf_counter() - t0
+        m["left_processes"] = [q for p in pids for q in group_members(p)]
+        m["left_dirs"] = [d for p in pids for d in owned_dirs(p)]
+    m["card_free_after"] = card_free_bytes(device)
+    m["tol"] = TOL_BF16_NORM
+    m["phase_s"] = time.perf_counter() - t_phase
+    checks = cli_client_checks(m)
+    emit("cli_client", **m, checks=checks)
+    failed = [name for name, ok in checks.items() if not ok]
+    check(not failed, f"cli_client checks failed: {failed}")
+    return {"cli_client": m["stage_calls"][0]["launches"],
+            "pool": m["pool"]["launches"]}
 
 
 def reset_launches() -> None:
@@ -5462,6 +5893,7 @@ def main() -> int:
     pool_actor = phase_control_plane()
     multinode = phase_multinode()
     autoscale = phase_autoscale()
+    cli_client = phase_cli_client()
     trained = phase_train(peaks)
     train_dp = phase_train_dp(peaks, trained[True]["losses"])
     train_feed = phase_train_feed(peaks)
@@ -5481,10 +5913,12 @@ def main() -> int:
     # of the fused DAG, the same stage's call inside a Data pool actor
     # (counted in that process), the same stage's call in a pool actor on
     # a node daemon and the autoscaled daemon's attention task (each
-    # counted in its process), one GPT-2-small train step with remat
-    # (the preset) and one without, the 5 steps of the Train worker and
-    # the 5 fed ViT steps of the train_feed worker (each counted in its
-    # process), every step of the libraries phase's Tune trials (summed
+    # counted in its process), the same stage's cold call submitted by a
+    # client driver to the CLI's node (counted in its worker) and the
+    # Pool actor's 4 attention calls (counted in its process), one
+    # GPT-2-small train step with remat (the preset) and one without, the
+    # 5 steps of the Train worker and the 5 fed ViT steps of the
+    # train_feed worker (each counted in its process), every step of the libraries phase's Tune trials (summed
     # over the trials' processes) and its workflow's GPU step (summed
     # over that step's runs), the parallel phase's tp=2 and fsdp=2 steps,
     # Ulysses and pipelines (each summed over its 2 ranks' processes), one
@@ -5492,7 +5926,7 @@ def main() -> int:
     pool = {name: pool_actor[name] for name in serving}
     paths = {"serving": serving, "dag_fused_replays": dag_fused,
              "processor_pool_actor": pool, "multinode": multinode,
-             "autoscale": autoscale,
+             "autoscale": autoscale, **cli_client,
              "train": trained[True]["launches"],
              "train_no_remat": trained[False]["launches"],
              "train_dp_worker": train_dp["launches"],

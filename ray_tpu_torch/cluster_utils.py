@@ -113,6 +113,13 @@ def stop_daemon(proc: subprocess.Popen, head_handle=None,
         os.killpg(proc.pid, signal.SIGKILL)
     except (ProcessLookupError, PermissionError):
         pass  # no process of the group is left
+    # SIGKILL lands asynchronously: on a loaded host a member can still
+    # be running when killpg returns, so wait (bounded) until every one
+    # is gone or a zombie.
+    from ._private.test_utils import group_members
+    deadline = time.monotonic() + timeout
+    while group_members(proc.pid) and time.monotonic() < deadline:
+        time.sleep(0.01)
     from ._private.runtime import _gc_stale_sessions
     _gc_stale_sessions()
 

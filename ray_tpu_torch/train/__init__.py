@@ -19,7 +19,10 @@ each, gloo on the CPU.
         scaling_config=ScalingConfig(num_workers=4, use_gpu=True),
     ).fit()
 
-The gradient-boosted-tree trainers (``gbdt.py``) are not ported yet.
+The gradient-boosted-tree trainers (``gbdt.py``) need xgboost or
+lightgbm, and raise ImportError without them. ``TorchTrainer`` and
+``TorchBackendConfig`` stand where the JAX package has ``JaxTrainer``
+and ``JaxBackendConfig``.
 """
 
 from .backend import (BackendConfig, HorovodBackendConfig,
@@ -47,13 +50,15 @@ from .trainer import (
     TensorflowTrainer,
     TorchTrainer,
 )
+from .gbdt import LightGBMTrainer, XGBoostTrainer
 
 __all__ = [
     "BackendConfig", "BaseTrainer", "Checkpoint", "CheckpointConfig",
     "CheckpointManager", "DataParallelTrainer", "FailureConfig",
-    "HorovodBackendConfig", "HorovodTrainer", "Result", "RunConfig",
-    "ScalingConfig", "TensorflowBackendConfig", "TensorflowTrainer",
-    "TorchBackendConfig", "TorchTrainer",
+    "HorovodBackendConfig", "HorovodTrainer", "LightGBMTrainer", "Result",
+    "RunConfig", "ScalingConfig", "TensorflowBackendConfig",
+    "TensorflowTrainer",
+    "TorchBackendConfig", "TorchTrainer", "XGBoostTrainer",
     "get_checkpoint", "get_context", "get_dataset_shard",
     "get_world_rank", "get_world_size", "report",
 ]

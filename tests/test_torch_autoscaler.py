@@ -460,3 +460,316 @@ class TestAutoscalerV2:
         _init("ray_tpu_torch", num_cpus=1)
         with pytest.raises(ValueError, match="GPU"):
             InstanceManager(node_types={"v4": {"resources": {"TPU": 4}}})
+
+
+# -- cloud providers ---------------------------------------------------------
+
+class FakeGcloud:
+    """Compute Engine instances behind ``gcloud compute instances``'s argv
+    surface: create starts an instance PROVISIONING, delete sets it
+    STOPPING; list returns them as gcloud's JSON."""
+
+    def __init__(self):
+        self.state = {}
+        self.calls = []
+
+    def __call__(self, argv):
+        import json
+
+        self.calls.append(list(argv))
+        assert argv[:3] == ["gcloud", "compute", "instances"], argv
+        verb = argv[3]
+        if verb == "create":
+            self.state[argv[4]] = "PROVISIONING"
+            return ""
+        if verb == "delete":
+            self.state[argv[4]] = "STOPPING"
+            return ""
+        if verb == "list":
+            return json.dumps([
+                {"name": n, "status": s, "networkInterfaces": [
+                    {"networkIP": f"10.0.0.{i + 2}"}]}
+                for i, (n, s) in enumerate(self.state.items())])
+        raise AssertionError(argv)
+
+
+def _gcp(config=None, runner=None):
+    from ray_tpu_torch.autoscaler.gcp_gpu_provider import (
+        GcpGpuInstanceProvider)
+
+    fake = runner or FakeGcloud()
+    provider = GcpGpuInstanceProvider(
+        {"project": "p", "zone": "us-central1-a",
+         "machine_type": "a3-highgpu-8g", **(config or {})},
+        cluster_name="ray", runner=fake)
+    return provider, fake
+
+
+class TestGcpGpuProvider:
+    """The GPU counterpart of tests/test_autoscaler.py's queued-resource
+    provider: one node is one Compute Engine VM and its GPUs."""
+
+    def test_create_poll_terminate_lifecycle(self):
+        from ray_tpu_torch.autoscaler.config import gpu_node_type
+        from ray_tpu_torch.autoscaler.gcp_gpu_provider import node_config_for
+
+        provider, fake = _gcp()
+        node_type = gpu_node_type("h100x8", "H100", 8)
+        ids = provider.create_node(node_config_for(node_type, "a3-highgpu-8g"),
+                                   {"node-type": "h100x8"}, 2)
+        assert len(ids) == 2 and all(i.startswith("ray-") for i in ids)
+        create = fake.calls[0]
+        assert create[3:5] == ["create", ids[0]]
+        assert "--machine-type=a3-highgpu-8g" in create
+        assert "--maintenance-policy=TERMINATE" in create
+        assert not any(a.startswith("--accelerator") for a in create)
+        assert {"--zone=us-central1-a", "--project=p"} <= set(create)
+        assert provider.non_terminated_nodes({"node-type": "h100x8"}) == ids
+        assert not provider.is_running(ids[0])
+        fake.state[ids[0]] = "RUNNING"
+        assert provider.is_running(ids[0])
+        assert provider.internal_ip(ids[0]) == "10.0.0.2"
+        provider.terminate_node(ids[1])
+        assert fake.calls[-1][3:6] == ["delete", ids[1], "--quiet"]
+        assert provider.non_terminated_nodes({}) == [ids[0]]
+        assert provider.node_tags(ids[0]) == {"node-type": "h100x8"}
+        assert provider.node_tags(ids[1]) == {}
+
+    @pytest.mark.parametrize("status,want", [
+        ("PROVISIONING", "pending"), ("STAGING", "pending"),
+        ("REPAIRING", "pending"), ("RUNNING", "running"),
+        ("STOPPING", "terminated"), ("STOPPED", "terminated"),
+        ("SUSPENDING", "terminated"), ("SUSPENDED", "terminated"),
+        ("TERMINATED", "terminated"), ("SOMETHING_NEW", "pending")])
+    def test_status_map(self, status, want):
+        provider, fake = _gcp()
+        (nid,) = provider.create_node({}, {}, 1)
+        fake.state[nid] = status
+        assert provider._status({"status": status}) == want
+        assert (nid in provider.non_terminated_nodes({})) == \
+            (want != "terminated")
+        assert provider.is_running(nid) == (want == "running")
+
+    def test_other_clusters_instances_are_not_listed(self):
+        provider, fake = _gcp()
+        fake.state["other-1234"] = "RUNNING"
+        (nid,) = provider.create_node({}, {}, 1)
+        assert provider.non_terminated_nodes({}) == [nid]
+
+    @pytest.mark.parametrize("config,flags", [
+        ({"spot": True}, ["--provisioning-model=SPOT",
+                          "--instance-termination-action=DELETE"]),
+        ({"reserved": True}, ["--reservation-affinity=any"]),
+        ({"reservation": "r1"}, ["--reservation-affinity=specific",
+                                 "--reservation=r1"]),
+        ({"head_address": "10.0.0.1:6379"},
+         ["--metadata=startup-script=python3 -m ray_tpu_torch start "
+          "--address=10.0.0.1:6379"]),
+        ({"machine_type": "n1-standard-16", "gpus": 2,
+          "accelerator_type": "nvidia-tesla-t4"},
+         ["--accelerator=type=nvidia-tesla-t4,count=2"]),
+    ])
+    def test_flags(self, config, flags):
+        # from the node type's config and from the provider's alike
+        for where in ("node", "provider"):
+            provider, fake = _gcp(config if where == "provider" else None)
+            provider.create_node(config if where == "node" else {}, {}, 1)
+            assert set(flags) <= set(fake.calls[0]), (where, fake.calls[0])
+
+    @pytest.mark.parametrize("config,match", [
+        ({"gpus": 4}, "carries 8"),                  # a3-highgpu-8g
+        ({"machine_type": "n1-standard-16", "gpus": 2}, "accelerator_type"),
+    ])
+    def test_gpu_count_must_fit_the_machine(self, config, match):
+        provider, fake = _gcp()
+        with pytest.raises(ValueError, match=match):
+            provider.create_node(config, {}, 1)
+        assert fake.calls == []
+
+    def test_missing_gcloud_errors_clearly(self, monkeypatch):
+        import shutil
+
+        from ray_tpu_torch.autoscaler.gcp_gpu_provider import (
+            GcpGpuInstanceProvider)
+
+        monkeypatch.setattr(shutil, "which", lambda name: None)
+        provider = GcpGpuInstanceProvider({"project": "p", "zone": "z"})
+        with pytest.raises(RuntimeError, match="gcloud"):
+            provider.create_node({}, {}, 1)
+
+    def test_registry(self):
+        from ray_tpu_torch.autoscaler.gcp_gpu_provider import (
+            GcpGpuInstanceProvider, make_provider)
+        from ray_tpu_torch.autoscaler.node_provider import (
+            FakeMultiNodeProvider)
+
+        assert isinstance(make_provider("fake_multinode", {}),
+                          FakeMultiNodeProvider)
+        p = make_provider("gcp_gpu_instances", {"project": "p"},
+                          runner=FakeGcloud())
+        assert isinstance(p, GcpGpuInstanceProvider)
+        with pytest.raises(ValueError, match="gcp_gpu_instances"):
+            make_provider("gcp_tpu_queued_resources", {})
+        with pytest.raises(ValueError, match="unknown provider"):
+            make_provider("aws", {})
+
+    def test_registry_kinds_match_the_reference(self):
+        ref = importlib.import_module("ray_tpu.autoscaler.gcp_tpu_provider")
+        port = importlib.import_module(
+            "ray_tpu_torch.autoscaler.gcp_gpu_provider")
+        assert set(port.PROVIDERS) == \
+            set(ref.PROVIDERS) - {"gcp_tpu_queued_resources"} | \
+            {"gcp_gpu_instances"}
+
+
+class FakeKubectl:
+    """tests/test_k8s_provider.py's in-memory pod store behind kubectl's
+    argv surface."""
+
+    def __init__(self):
+        import threading
+
+        self.pods = {}
+        self.lock = threading.Lock()
+
+    def __call__(self, argv, stdin_text=None):
+        import json
+
+        assert argv[0] == "kubectl" and argv[1] == "-n"
+        args = argv[3:]
+        with self.lock:
+            if args[0] == "create":
+                pod = json.loads(stdin_text)
+                pod.setdefault("status", {})["phase"] = "Pending"
+                self.pods[pod["metadata"]["name"]] = pod
+                return ""
+            if args[0] == "get":
+                key, val = args[args.index("-l") + 1].split("=", 1)
+                return json.dumps({"items": [
+                    p for p in self.pods.values()
+                    if p["metadata"]["labels"].get(key) == val]})
+            if args[0] == "delete":
+                self.pods.pop(args[2], None)
+                return ""
+        raise AssertionError(f"unexpected kubectl {args}")
+
+    def set_running(self, name, ip="10.0.0.9"):
+        with self.lock:
+            self.pods[name]["status"] = {"phase": "Running", "podIP": ip}
+
+
+# The reference's provider config (TPU node pool) and the port's (GPU).
+K8S_CONFIG = {
+    "ray_tpu": {"tpu_accelerator": "tpu-v5-lite-podslice",
+                "tpu_topology": "2x4", "tpu_chips_per_host": 4},
+    "ray_tpu_torch": {"gpu_accelerator": "nvidia-h100-80gb",
+                      "gpus_per_host": 8},
+}
+
+
+def _k8s(package, **extra):
+    mod = importlib.import_module(package + ".autoscaler.k8s_provider")
+    fake = FakeKubectl()
+    prov = mod.KubernetesNodeProvider(
+        {"namespace": "ray", "image": "img:1",
+         "head_address": "10.0.0.1:6379", **K8S_CONFIG[package], **extra},
+        cluster_name="kc", runner=fake)
+    return mod, prov, fake
+
+
+class TestK8sProvider:
+    def test_create_list_tags_terminate(self):
+        def case(package):
+            _, prov, fake = _k8s(package)
+            ids = prov.create_node({}, {"node-type": "worker"}, 2)
+            out = [len(ids), sorted(prov.non_terminated_nodes({})) ==
+                   sorted(ids), prov.node_tags(ids[0]),
+                   prov.is_running(ids[0])]
+            fake.set_running(ids[0])
+            prov._invalidate_pods()
+            out += [prov.is_running(ids[0]), prov.internal_ip(ids[0])]
+            prov.terminate_node(ids[1])
+            return out + [prov.non_terminated_nodes({}) == [ids[0]]]
+
+        outs = {package: case(package) for package in PACKAGES}
+        assert outs["ray_tpu_torch"] == outs["ray_tpu"] == [
+            2, True, {"node-type": "worker"}, False, True, "10.0.0.9", True]
+
+    def test_manifest_targets_a_gke_gpu_node_pool(self):
+        _, prov, fake = _k8s("ray_tpu_torch")
+        (nid,) = prov.create_node({}, {"node-type": "gpu_worker"}, 1)
+        spec = fake.pods[nid]["spec"]
+        assert spec["nodeSelector"] == {
+            "cloud.google.com/gke-accelerator": "nvidia-h100-80gb"}
+        (container,) = spec["containers"]
+        assert container["resources"]["limits"] == {"nvidia.com/gpu": "8"}
+        assert container["resources"]["requests"] == {"nvidia.com/gpu": "8"}
+        assert container["command"] == [
+            "python", "-m", "ray_tpu_torch.scripts.cli", "start",
+            "--address=10.0.0.1:6379"]
+        assert container["image"] == "img:1"
+
+    def test_default_image_is_the_ports(self):
+        mod = importlib.import_module("ray_tpu_torch.autoscaler.k8s_provider")
+        prov = mod.KubernetesNodeProvider({}, runner=FakeKubectl())
+        assert prov.image == "ray-tpu-torch:latest"
+
+    @pytest.mark.parametrize("key,gpu_key", [
+        ("tpu_chips_per_host", "gpus_per_host"),
+        ("tpu_accelerator", "gpu_accelerator"),
+        ("tpu_topology", "no topology")])
+    def test_tpu_keys_raise(self, key, gpu_key):
+        mod = importlib.import_module("ray_tpu_torch.autoscaler.k8s_provider")
+        with pytest.raises(ValueError, match=gpu_key):
+            mod.KubernetesNodeProvider({key: "x"}, runner=FakeKubectl())
+        _, prov, fake = _k8s("ray_tpu_torch")
+        with pytest.raises(ValueError, match=gpu_key):
+            prov.create_node({key: "x"}, {}, 1)
+        assert fake.pods == {}
+
+    def test_v2_instance_manager_scales_up_and_down(self, shutdown_both):
+        """test_k8s_provider.py's v2 case in both packages: a standing
+        demand creates a pod, the pod's daemon "registers" (faked), the
+        instance runs, and the instance is reconciled out, its pod
+        deleted through kubectl."""
+        def case(package):
+            pkg = _init(package, num_cpus=1)
+            mod, prov, fake = _k8s(package)
+            v2 = importlib.import_module(package + ".autoscaler.v2")
+            registered = {}
+            mgr = v2.InstanceManager(
+                node_types={"worker": {"resources": {"CPU": 1, "pool": 1},
+                                       "max_workers": 2, "node_config": {}}},
+                provider=mod.NodeProviderInstanceAdapter(
+                    prov, daemon_lookup=registered.get),
+                max_workers=2, idle_timeout_s=0.5)
+            try:
+                def probe():
+                    return 1
+
+                ref = pkg.remote(resources={"pool": 1})(probe).remote()
+                deadline = time.monotonic() + TIMEOUT
+                while not fake.pods:
+                    assert time.monotonic() < deadline, "no pod created"
+                    mgr.reconcile()
+                    time.sleep(0.1)
+                name = next(iter(fake.pods))
+                fake.set_running(name)
+                prov._invalidate_pods()
+                registered[name] = "feedbeef" * 4
+                while not any(i.status == v2.RAY_RUNNING
+                              for i in mgr.instances.values()):
+                    assert time.monotonic() < deadline, "never running"
+                    mgr.reconcile()
+                    time.sleep(0.1)
+                pkg.cancel(ref)
+                while name in fake.pods:
+                    assert time.monotonic() < deadline, list(fake.pods)
+                    mgr.reconcile()
+                    time.sleep(0.1)
+                return True
+            finally:
+                mgr.shutdown()
+                pkg.shutdown()
+
+        assert [case(package) for package in PACKAGES] == [True, True]

@@ -1554,6 +1554,150 @@ class TestAutoscalePhase:
             capsys.readouterr().out
 
 
+
+def _cli_client_report():
+    """A cli_client report as the card should give it."""
+    call = {"launches": {"flash_fwd": 96, "flash_bwd_dq": 0,
+                         "flash_bwd_dkv": 0},
+            "pid": 253, "pgid": 228, "node": "n" * 32,
+            "cuda_visible_devices": "0", "rows": 16, "equal_rows": 16}
+    row = {"max_norm_err": 3.4e-3, "finite": True, "pid": 289,
+           "cuda_visible_devices": "0",
+           "launches": {"flash_fwd": 1, "flash_bwd_dq": 0,
+                        "flash_bwd_dkv": 0}}
+    return {
+        "n_layers": 12, "driver_pid": 120, "head_pid": 211, "node_pid": 228,
+        "node_id": "n" * 32, "status_rc": 0, "list_rc": 0,
+        "status": {"resources": {"CPU": [10.0, 10.0], "GPU": [1.0, 1.0]},
+                   "nodes": 2},
+        "listed_alive": 2, "gpus_by_node": {"head": 0.0, "node": 1.0},
+        "stage_calls": [call, dict(call)],
+        "driver_sum": 4434.0146484375,
+        "tensor": {"arrived_on": "cpu", "dtype": "torch.bfloat16",
+                   "sum": 4434.0146484375, "node": "n" * 32,
+                   "cuda_visible_devices": "0"},
+        "head_group": [211, 225, 226], "head_cuda_files": {},
+        "worker_cuda_files": {"fds": ["/dev/nvidia-uvm", "/dev/nvidia6"],
+                              "maps": ["/dev/nvidia-uvm", "/dev/nvidia6"]},
+        "pool": {"rows": [dict(row) for _ in range(cs.POOL_INPUTS)],
+                 "launches": {"flash_fwd": 4, "flash_bwd_dq": 0,
+                              "flash_bwd_dkv": 0},
+                 "pids": [289]},
+        "head_exit": 0, "node_exit": 0,
+        "dirs_during": {"head": 2, "node": 2},
+        "left_processes": [], "left_dirs": [],
+        "card_free_before": 80 << 30, "card_free_after": (80 << 30) - 1}
+
+
+class TestCliClientPhase:
+    def test_report_accepted(self):
+        assert all(cs.cli_client_checks(_cli_client_report()).values())
+
+    @pytest.mark.parametrize("path,value,failed", [
+        ("status.resources.GPU", [1.0, 2.0], "cli_status"),  # counted twice
+        ("status.nodes", 1, "cli_status"),
+        ("listed_alive", 1, "cli_status"),
+        ("gpus_by_node.head", 1.0, "cli_status"),  # the head took the card
+        ("status_rc", 1, "cli_status"),
+        ("stage_calls.0.node", "h" * 32, "stage_on_node"),
+        ("stage_calls.1.pgid", 211, "stage_on_node"),   # the head's group
+        ("stage_calls.0.pid", 225, "stage_on_node"),    # a head process
+        ("stage_calls.0.cuda_visible_devices", "", "stage_on_node"),
+        ("stage_calls.1.cuda_visible_devices", "0,1", "stage_on_node"),
+        ("stage_calls.1.launches.flash_fwd", 0, "launches"),  # plain path
+        ("stage_calls.0.launches.flash_bwd_dq", 12, "launches"),
+        ("stage_calls.1.equal_rows", 15, "tokens_equal"),
+        ("tensor.arrived_on", "cuda:0", "tensor"),
+        ("tensor.sum", 4434.0, "tensor"),
+        ("tensor.dtype", "torch.float32", "tensor"),
+        ("head_cuda_files", {"211": {"fds": ["/dev/nvidiactl"],
+                                     "maps": []}}, "head_no_context"),
+        ("worker_cuda_files.maps", [], "head_no_context"),  # blind probe
+        ("pool.rows.2.max_norm_err", 3e-2, "pool_in_band"),
+        ("pool.rows.0.finite", False, "pool_in_band"),
+        ("pool.launches.flash_fwd", 0, "pool_launches"),
+        ("pool.pids", [120], "pool_launches"),            # the driver
+        ("pool.pids", [289, 290], "pool_launches"),
+        ("pool.rows.1.cuda_visible_devices", "", "pool_launches"),
+        ("head_exit", None, "teardown"),
+        ("node_exit", -15, "teardown"),
+        ("left_processes", [253], "teardown"),
+        ("left_dirs", ["/dev/shm/rtt_x_node_1"], "teardown"),
+        ("dirs_during.node", 0, "teardown"),
+        ("card_free_after", (80 << 30) - (600 << 20), "memory_back"),
+        ("card_free_after", None, "memory_back"),
+    ])
+    def test_report_rejected(self, path, value, failed):
+        m = _cli_client_report()
+        node = m
+        *parents, last = path.split(".")
+        for key in parents:
+            node = node[int(key)] if isinstance(node, list) else node[key]
+        if isinstance(node, list):
+            node[int(last)] = value
+        else:
+            node[last] = value
+        checks = cs.cli_client_checks(m)
+        assert [k for k, ok in checks.items() if not ok] == [failed]
+
+    def test_head_banner_and_status_parse(self):
+        lines = [
+            "ray_tpu_torch head started.",
+            "  client address:  127.0.0.1:10001  (--address for other "
+            "commands)",
+            "  cluster address: 127.0.0.1:40123  (python -m ray_tpu_torch "
+            "start --address ... on worker hosts)",
+            "  cluster token:   " + "ab" * 16 + "  (--token-hex on worker "
+            "hosts)",
+            "  dashboard:       http://127.0.0.1:8265",
+            '  resources:       {"CPU": 2.0}']
+        assert cs.parse_head_banner(lines[:3]) == {
+            "client": "127.0.0.1:10001", "cluster": "127.0.0.1:40123"}
+        assert cs.parse_head_banner(lines) == {
+            "client": "127.0.0.1:10001", "cluster": "127.0.0.1:40123",
+            "token": "ab" * 16, "dashboard": "http://127.0.0.1:8265"}
+        status = ("======== Cluster status ========\n"
+                  "  CPU: 3/4 available\n  GPU: 0/1 available\n"
+                  "  memory: 1.35217e+11/1.35217e+11 available\n"
+                  "  nodes: 2\n")
+        assert cs.parse_status(status) == {
+            "resources": {"CPU": [3.0, 4.0], "GPU": [0.0, 1.0],
+                          "memory": [1.35217e11, 1.35217e11]}, "nodes": 2}
+
+    def test_head_banner_is_what_the_cli_prints(self):
+        """The labels parse_head_banner reads are the ones cmd_start
+        prints."""
+        src = open(os.path.join(REPO, "ray_tpu_torch", "scripts",
+                                "cli.py")).read()
+        for label in ("client address:", "cluster address:",
+                      "cluster token:", "dashboard:"):
+            assert f'"  {label}' in src or f'f"  {label}' in src, label
+
+    def test_cuda_files_of_a_process_without_a_card(self):
+        assert cs.cuda_files(os.getpid()) == {"fds": [], "maps": []}
+        assert cs.cuda_files(2 ** 22 + 12345) == {"fds": [], "maps": []}
+
+    def test_phase_on_the_cpu(self, capsys):
+        """The whole phase at a tiny width on the CPU, the node's GPU
+        faked: every check but those that need the card passes (K1's
+        launches, on the plain path here; the stage's worker maps no
+        card, so the head's check has no control; the card's memory)."""
+        import json
+
+        from ray_tpu_torch.models import GPTConfig
+
+        with pytest.raises(AssertionError) as err:
+            cs.phase_cli_client(GPTConfig.tiny(), "cpu", (1, 2, 64, 16))
+        assert "['launches', 'head_no_context', 'pool_launches', " \
+            "'memory_back']" in str(err.value)
+        (line,) = [x for x in capsys.readouterr().out.splitlines()
+                   if x.startswith('{"phase": "cli_client"')]
+        m = json.loads(line)
+        assert m["head_cuda_files"] == {} and m["tensor"]["sum"] == \
+            m["driver_sum"]
+        assert [c["equal_rows"] for c in m["stage_calls"]] == [16, 16]
+        assert m["left_processes"] == [] and m["left_dirs"] == []
+
 def _libraries_report():
     """A libraries report as the card should give it: the first trial's
     steps 1-4 in one process and 5-8 in its retry, the lr 2e-4 trial cut

@@ -31,7 +31,8 @@ REF = os.path.join(REPO, "ray_tpu")
 COPIED = ("api.py", "exceptions.py", "_private", "_native", "util", "dag",
           "serve", "data", "train", "rllib/utils", "rllib/connectors",
           "rllib/offline", "cluster_utils.py", "autoscaler", "tune", "air",
-          "workflow", "job", "dashboard")
+          "workflow", "job", "dashboard", "scripts", "experimental",
+          "__main__.py")
 # Keys of the reference's TPU detection that the port's GPU detection
 # replaces (``_private/resources.py``): RAY_TPU_<name> -> its RTT_ key,
 # or None where the port has no counterpart (GCE metadata serves TPU VMs).

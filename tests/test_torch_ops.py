@@ -492,6 +492,34 @@ class TestIsolation:
         assert [m for m in out if _forbidden(m)] == []
         assert [m for m in out if m.split(".")[0] == "torch"] == []
 
+    def test_cli_client_and_shims_import_leaves_jax_and_ray_tpu_out(self):
+        # The CLI, the remote-driver client, Pool, the ecosystem shims,
+        # experimental, the GBDT trainers and the cloud providers reach
+        # neither jax nor ray_tpu, nor torch: a head started by the CLI
+        # loads torch only to unpickle a client's tensor.
+        code = (
+            "import sys\n"
+            "import ray_tpu_torch.scripts.cli, ray_tpu_torch.util.client\n"
+            "import ray_tpu_torch.util.client.api_ops\n"
+            "import ray_tpu_torch.util.multiprocessing\n"
+            "import ray_tpu_torch.util.iter, ray_tpu_torch.util.actor_group\n"
+            "import ray_tpu_torch.util.dask, ray_tpu_torch.util.joblib\n"
+            "import ray_tpu_torch.util.spark, ray_tpu_torch.experimental\n"
+            "import ray_tpu_torch.experimental.collective\n"
+            "import ray_tpu_torch.train.gbdt\n"
+            "import ray_tpu_torch.autoscaler.k8s_provider\n"
+            "import ray_tpu_torch.autoscaler.gcp_gpu_provider\n"
+            "print('\\n'.join(sys.modules))\n")
+        out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                             capture_output=True, text=True, timeout=120,
+                             check=True).stdout.split()
+        assert {"ray_tpu_torch.util.client.server",
+                "ray_tpu_torch.util.client.api_ops",
+                "ray_tpu_torch.experimental.collective",
+                "ray_tpu_torch.autoscaler.gcp_gpu_provider"} <= set(out)
+        assert [m for m in out if _forbidden(m)] == []
+        assert [m for m in out if m.split(".")[0] == "torch"] == []
+
     def test_device_plumbing_import_leaves_jax_and_ray_tpu_out(self,
                                                               tmp_path):
         # The feed, the store's tensor landing, the fused DAG, profiling
