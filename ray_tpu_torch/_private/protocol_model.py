@@ -1,17 +1,20 @@
 """Declarative wire-protocol model: session DFAs + payload schemas.
 
-(ray_tpu_torch keeps this module for the runtime conformance tap alone;
-the static lint passes named below stay with the JAX package.)
+(The port's lint, ``ray_tpu_torch/devtools/lint``, imports this module
+for its protocol-order and payload-schema passes; the wiretap imports it
+too, so the static and the dynamic checks read one model.)
 
 One model, three consumers:
 
-  * the **protocol-order** static pass (protocol_order.py) — every send
-    site's constant must be a legal transition from the states its
-    enclosing function is registered to run in, every request constant
+  * the **protocol-order** static pass
+    (``devtools/lint/protocol_order.py``) — every send site's constant
+    must be a legal transition from the states its enclosing function
+    is registered to run in, every request constant
     must have a registered response path, and no send may be reachable
     after the connection's teardown;
-  * the **payload-schema** static pass (payload_schema.py) — send-site
-    payload shapes are diffed against :data:`PAYLOADS` (orphan keys,
+  * the **payload-schema** static pass
+    (``devtools/lint/payload_schema.py``) — send-site payload shapes
+    are diffed against :data:`PAYLOADS` (orphan keys,
     phantom consumer reads, compact-tuple arity drift);
   * the **runtime conformance tap** (``_private/wiretap.py``) — live
     frame sequences are replayed through :class:`SessionDFA` instances

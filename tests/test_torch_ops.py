@@ -575,6 +575,37 @@ class TestIsolation:
                 "ray_tpu_torch._private.protocol_model"} <= set(out)
         assert [m for m in out[1:] if _forbidden(m) or m == "torch"] == []
 
+    def test_lint_import_leaves_jax_ray_tpu_and_torch_out(self):
+        # The port's lint, every module of it, and the protocol model it
+        # shares with the wiretap reach neither jax nor ray_tpu (not
+        # even the JAX package's pure-stdlib lint), nor torch. The 15th
+        # module, __main__, runs as `python -m` runs it.
+        lint_dir = os.path.join(REPO, "ray_tpu_torch", "devtools", "lint")
+        mods = sorted(f"ray_tpu_torch.devtools.lint.{f[:-3]}"
+                      for f in os.listdir(lint_dir)
+                      if f.endswith(".py") and f != "__main__.py")
+        assert len(mods) == 14
+        code = (
+            "import sys, runpy\n"
+            "import ray_tpu_torch.devtools\n"
+            + "".join(f"import {m}\n" for m in mods)
+            + "import ray_tpu_torch._private.protocol_model\n"
+            "sys.argv = ['lint', '--passes', 'config-keys', '-q']\n"
+            "try:\n"
+            "    runpy.run_module('ray_tpu_torch.devtools.lint',\n"
+            "                     run_name='__main__')\n"
+            "except SystemExit as e:\n"
+            "    assert e.code == 0, e.code\n"
+            "print('\\n'.join(sys.modules))\n")
+        out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                             capture_output=True, text=True, timeout=120,
+                             check=True).stdout.split()
+        assert set(mods) | {"ray_tpu_torch.devtools",
+                            "ray_tpu_torch._private.protocol_model"} \
+            <= set(out)
+        assert [m for m in out if _forbidden(m)] == []
+        assert [m for m in out if m.split(".")[0] == "torch"] == []
+
     def test_train_and_collective_import_leaves_jax_and_ray_tpu_out(self):
         # Train and the collective group load torch where they run, not
         # at import: the control plane's workers start without it.
