@@ -175,7 +175,7 @@ one JSON line per phase:
      libraries      the port's Tune, dashboard, Workflow and Jobs on a
                     head that declares the card (num_gpus=1): a sweep of
                     phase 11's GPT-2-small step (remat, B=16, S=1024,
-                    seed-0 weights and batch) over lr 6e-4, 2e-4 and 0,
+                    seed-0 weights and batch) over lr 6e-4 and 0,
                     one trial at a time, each trial an actor pinned to
                     the card ({"CPU": 1, "GPU": 1}) under ASHA (max_t 8,
                     grace 2, reduction 2) with FailureConfig(
@@ -214,13 +214,23 @@ one JSON line per phase:
                     backward against the one-device layer on each rank's
                     tokens, GPipe and 1F1B with 2 stages of 6 GPT-2
                     blocks and 4 microbatches of 2 x 1024 against the 12
-                    blocks in sequence, and dryrun_multichip(2); K1-K3
-                    counted in each rank's process against the per-rank
-                    expectation, each collective's calls, bytes a step
-                    (the tp and fsdp bytes against their reckoning from
-                    the shapes) and transport (gloo, or gloo host-staged
-                    for the point-to-point hops), and each path's ms
-                    beside its tp=1 or one-device counterpart
+                    blocks in sequence; the Megatron family steps, 3
+                    bf16 steps each against the unsplit step in this
+                    process from the same weights: llama tpu_bench at
+                    tp=2 (B=4, S=2048, one kv head a rank), ViT-B/16 at
+                    tp=2 (B=32), MoEConfig() at tp=2 and at ep=2 (B=8,
+                    S=1024), with their blocks' shapes, then 2 f32 steps
+                    at 2 layers held to the unsplit f32 step (loss,
+                    gradients, moves, MoE's routes) with planted faults
+                    the gradient band must reject; and
+                    dryrun_multichip's rank work (in the same ranks);
+                    K1-K3 counted in each rank's process against the
+                    per-rank expectation, each collective's calls, bytes
+                    a step (the tp, fsdp and family bytes against their
+                    reckoning from the shapes) and transport (gloo, or
+                    gloo host-staged for the point-to-point hops), and
+                    each path's ms beside its tp=1 or one-device
+                    counterpart
  13. train_vs_cpu   one step at GPT-2-small width and 2 layers, card vs
                     CPU from the same weights: loss, every gradient, every
                     param after AdamW (f32 at T=128, bf16 at ragged T=100)
@@ -288,6 +298,7 @@ one JSON line per phase:
                     within TOL_DREAMER_GRADS, the categorical samples
                     that flip between them, and three planted faults
                     outside the band; no K1-K3 launch
+     phase_seconds  each phase's seconds and the script's total so far
  22. kernels        one entry per kernel: launches on each main path
                     (the processor's counted in its pool actor, the
                     Train workers' in their processes, the Tune trials'
@@ -307,6 +318,7 @@ the card's name and power limit printed in phase 1.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import math
@@ -372,6 +384,12 @@ VIT_SHAPE, MOE_SHAPE = (64, 12, 197, 64), (8, 8, 1024, 64)
 # bf16: both compare phases hold K1-K3 there and time them.
 MODEL_SHAPES = [(GPT2_SHAPE, True), (LLAMA_SHAPE, True), (VIT_SHAPE, False),
                 (MOE_SHAPE, True)]
+# The attention of each rank of the parallel phase's Megatron family
+# paths at tp=2 (llama's one kv head a rank, ViT-B/16's 6 heads at B=32,
+# MoE's 4 heads; MoE at ep=2 runs MOE_SHAPE): both compare phases hold
+# K1-K3 there, untimed.
+PAR_FAMILY_SHAPES = [((4, 4, 2048, 128), True), ((32, 6, 197, 64), False),
+                     ((8, 4, 1024, 64), True)]
 # Model tolerances of the new families, card vs CPU on the same weights:
 # ResNet-50's f32 logits, after dividing by max|ref|: the same products
 #   summed in other orders by cuDNN's algorithms (no TF32) and the CPU's,
@@ -607,7 +625,7 @@ def phase_compare(peaks):
         ((2, 4, 128, 16), torch.bfloat16, True),    # head_dim 16
         ((2, 4, 256, 128), torch.float32, True),
     ] + [(shape, torch.bfloat16, causal)
-         for shape, causal in MODEL_SHAPES + EDGE_CASES]
+         for shape, causal in MODEL_SHAPES + EDGE_CASES + PAR_FAMILY_SHAPES]
     timed = {shape for shape, _ in MODEL_SHAPES}
     results = {}
     for shape, dtype, causal in cases:
@@ -1149,7 +1167,8 @@ def phase_compare_bwd(peaks):
         ((2, 3, 200, 64), bf16, True),                # ragged S
         ((2, 4, 128, 16), f32, True), ((2, 4, 128, 16), bf16, True),
         ((2, 4, 256, 128), f32, True), ((2, 4, 256, 128), bf16, True),
-    ] + [(shape, bf16, causal) for shape, causal in MODEL_SHAPES + EDGE_CASES]
+    ] + [(shape, bf16, causal)
+         for shape, causal in MODEL_SHAPES + EDGE_CASES + PAR_FAMILY_SHAPES]
     timed = {shape for shape, _ in MODEL_SHAPES}
     results = {}
     for shape, dtype, causal in cases:
@@ -3160,10 +3179,14 @@ def phase_train_feed(peaks):
 # phase_train's GPT-2-small step (remat, B=16, S=1024, seed-0 weights and
 # batch) in trials pinned to the card, AdamW at each of TUNE_LRS (best
 # first), one trial at a time under ASHA (max_t 8, grace 2, reduction 2:
-# rungs at steps 2 and 4); the first trial fails once after its step-4
-# checkpoint and Tune restarts it from that checkpoint.
+# rungs at steps 2 and 4; at each rung a trial below the best half of
+# those recorded there stops, so the lr-0 trial stops at step 2); the
+# first trial fails once after its step-4 checkpoint and Tune restarts
+# it from that checkpoint. Two trials: each trial's process costs its
+# cold start, and one trial that runs through and one that ASHA stops
+# are what the checks read.
 TUNE_STEPS = 8
-TUNE_LRS = [6e-4, 2e-4, 0.0]
+TUNE_LRS = [6e-4, 0.0]
 TUNE_CHECKPOINT_AT = 4
 # The resumed trial's steps against the same steps run uninterrupted in
 # this process: the bf16 loss_rtol of test_torch_train.py. The restored
@@ -3915,8 +3938,8 @@ def record_routes(record):
 
     original = pmoe.top2_gating
 
-    def recorded(logits, capacity):
-        dispatch, combine, aux = original(logits, capacity)
+    def recorded(logits, capacity, *rest):
+        dispatch, combine, aux = original(logits, capacity, *rest)
         record.append(dispatch.any(-1).cpu())
         return dispatch, combine, aux
 
@@ -3976,7 +3999,7 @@ def phase_moe():
     # in the same order (the forward, then the remat recompute).
     half = len(record) // 2
     card, cpu = torch.stack(record[:half]), torch.stack(record[half:])
-    flips = float((card != cpu).any(-1).float().mean())
+    flips = route_flip_share(record[:half], record[half:])
     dropped = float((cpu.sum(-1) < 2).float().mean())
     cmp = compare_states(states)
     emit("moe_vs_cpu", config="moe default width, 2 layers",
@@ -4093,6 +4116,46 @@ TOL_PAR_PP_GRADS = VS_CPU_RUNS[1][2]["grads"]
 # experts' f32 einsums, run on [E/n, n*C] buffers instead of [E, C], sum
 # in another order (the router's f32 grad is held to the same band).
 TOL_PAR_MOE = 1e-2
+# The Megatron family paths: path -> (family, the split mesh axis, batch,
+# sequence; None for ViT's images). Each runs PAR_STEPS timed steps on
+# PAR_RANKS ranks against its unsplit step in this process, from the
+# seed-0 weights and batch.
+PAR_FAMILIES = {
+    "llama_tp": ("llama", "tp", 4, 2048),
+    "vit_tp": ("vit", "tp", 32, None),
+    "moe_tp": ("moe", "tp", 8, 1024),
+    "moe_ep": ("moe", "ep", 8, 1024),
+}
+# Each family path's numbers are held on PAR_F32_STEPS further steps in
+# f32, at full width and PAR_F32_LAYERS layers (as train_vs_cpu and
+# llama_vs_cpu hold the card to the CPU: the split is the same in every
+# layer), against the unsplit step's in f32: the loss (relative) and each
+# first-step gradient (over its leaf's max) in train_vs_cpu's f32 bands,
+# the params' moves in TOL_PAR_PARAMS (AdamW's artefact above does not
+# spare f32: a near-zero gradient's sign still decides a move of lr,
+# which is 1.6% of the max of llama's smallest leaves after 2 steps on
+# an H100). In bf16, tp's partial products round before the
+# all-reduce sums them; on an H100 that moved llama's wq gradients (a
+# leaf of its own, small, through 16 layers) by 6% of their max, ViT's
+# steeply falling loss by 2% at step 3, and flipped MoE routes, which
+# change the tokens capacity drops (MoE's gate gradients 31% apart).
+# The bf16 run is timed and counted; its losses and route flips are
+# reported beside the unsplit step's.
+PAR_F32_STEPS, PAR_F32_LAYERS = 2, 2
+TOL_PAR_F32 = VS_CPU_RUNS[0][2]
+# The planted faults each family path reads through its gradient band,
+# which must reject every one: the gradients doubled; every "f" dropped
+# (for ep, take_block's gather of the experts' input gradient); the
+# head-aligned column blocks read as contiguous ones; MoE's tp sum moved
+# after the combine (the router then sees a share of its gradient), and
+# ep's gather with allgather's reduce-scatter backward (the experts'
+# gradient counted once a rank).
+PAR_FAMILY_CONTROLS = {
+    "llama_tp": {"doubled", "f_sums_dropped", "wkv_contiguous_blocks"},
+    "vit_tp": {"doubled", "f_sums_dropped", "wqkv_contiguous_blocks"},
+    "moe_tp": {"doubled", "f_sums_dropped", "sum_after_combine"},
+    "moe_ep": {"doubled", "f_sums_dropped", "gather_summed"},
+}
 
 
 def parallel_expected_launches(path: str, n_layers: int = 12,
@@ -4100,6 +4163,9 @@ def parallel_expected_launches(path: str, n_layers: int = 12,
     """K1, K2, K3 launches in each rank's process on a parallel path:
     ``tp``/``fsdp``: ``steps`` GPT steps with remat, every layer's
     attention on each rank (tp on half the heads, fsdp on half the rows);
+    a ``PAR_FAMILIES`` path: ``steps`` of its family's step (llama's
+    tpu_bench without remat, ViT-B/16's and MoE's with), every layer's
+    attention on each rank;
     ``ulysses``: one flash_attention forward and backward on each rank's
     heads; ``gpipe``: each of PAR_PP_MICRO microbatches through the
     rank's n_layers / 2 blocks, forward and backward (no remat); ``1f1b``:
@@ -4108,6 +4174,10 @@ def parallel_expected_launches(path: str, n_layers: int = 12,
     if path in ("tp", "fsdp"):
         return {n: k * steps for n, k in
                 expected_launches(n_layers, True).items()}
+    if path in PAR_FAMILIES:
+        cfg = family_config(PAR_FAMILIES[path][0])
+        return {n: k * steps for n, k in
+                expected_launches(cfg.n_layers, cfg.remat).items()}
     if path == "ulysses":
         return {"flash_fwd": 1, "flash_bwd_dq": 1, "flash_bwd_dkv": 1}
     per_stage = n_layers // PAR_PP_STAGES * PAR_PP_MICRO
@@ -4188,14 +4258,15 @@ def first_grads_optimizer(store: list):
     return make
 
 
-def contiguous_wqkv(w, n: int):
-    """A JAX-layout wqkv ([d, 3d], columns [q | k | v]) with its columns
-    in the order of n head-aligned blocks put side by side: rank r's
-    [q_r | k_r | v_r], then rank r + 1's. A gather that concatenated the
-    tp blocks would give this."""
+def contiguous_wqkv(w, n: int, segments: int = 3):
+    """A JAX-layout wqkv ([d, 3d], columns [q | k | v]; llama's wkv with
+    ``segments=2``, [k | v]) with its columns in the order of n
+    head-aligned blocks put side by side: rank r's [q_r | k_r | v_r],
+    then rank r + 1's. A gather that concatenated the tp blocks would
+    give this."""
     import torch
 
-    width = w.shape[-1] // 3
+    width = w.shape[-1] // segments
     parts = [x.chunk(n, dim=-1) for x in w.split(width, dim=-1)]
     return torch.cat([p[r] for r in range(n) for p in parts], dim=-1)
 
@@ -4562,6 +4633,366 @@ def par_pp_rank(kind: str) -> dict:
             "leaves": len(tree_leaves(grads))}
 
 
+def family_config(family: str, **overrides):
+    """The full-width config of a family's parallel path, bf16: llama's
+    tpu_bench (remat off), ViT-B/16 and MoEConfig() (remat on)."""
+    from ray_tpu_torch.models import LlamaConfig, MoEConfig, ViTConfig
+
+    cfg = {"llama": LlamaConfig.tpu_bench, "vit": ViTConfig.vit_b16,
+           "moe": MoEConfig}[family]()
+    return dataclasses.replace(cfg, **overrides)
+
+
+def family_api(family: str):
+    """(make_*_train_step, *_param_axes, *_init, the model module) of a
+    family; the module's TP_SEGMENTS lays out its head-aligned blocks."""
+    from ray_tpu_torch.models import llama, moe, vit
+
+    return {"llama": (llama.make_llama_train_step, llama.llama_param_axes,
+                      llama.llama_init, llama),
+            "vit": (vit.make_vit_train_step, vit.vit_param_axes,
+                    vit.vit_init, vit),
+            "moe": (moe.make_moe_train_step, moe.moe_param_axes,
+                    moe.moe_init, moe)}[family]
+
+
+def family_batch(family: str, cfg, b: int, s, device: str = "cuda"):
+    """The seed-0 batch of a family's path: tokens and their next tokens,
+    or ViT's images (standard normal) and labels."""
+    import numpy as np
+    import torch
+
+    if family != "vit":
+        return token_batch(cfg.vocab_size, b, s, device=device)
+    rng = np.random.default_rng(0)
+    images = rng.standard_normal(
+        (b, cfg.image_size, cfg.image_size, cfg.channels)).astype(np.float32)
+    labels = rng.integers(0, cfg.num_classes, b, dtype=np.int64)
+    return (torch.from_numpy(images).to(device),
+            torch.from_numpy(labels).to(device))
+
+
+def family_bytes(path: str, cfg, b: int, s, n: int = PAR_RANKS) -> dict:
+    """Bytes one rank hands each collective in one step of a family path
+    on n ranks, by op (no other op runs). tp: the "g" sums of the forward
+    (again in the remat recompute, as for GPT in tp_all_reduce_bytes) and
+    the "f" gradient sums of the backward. llama: GPT's reckoning (its
+    unchunked loss moves the same f32 sums). ViT: 4 (remat: 5) [b, 197,
+    d] sums a layer and the row-parallel patch projection's [b, 196, d]
+    sum; no loss sums (the class head is replicated). MoE tp: attention's
+    2 (3) [b, s, d] sums a layer and 2 (3) of the experts' f32 [E, C, d]
+    buffers (the outputs' sum, the inputs' "f"), the embedding's and the
+    final "f"'s [b, s, d] and the loss's f32 sums. MoE ep: 2 (3) f32
+    all-gathers a layer of a rank's E / n experts' [C, d] buffers (the
+    outputs forward, the inputs' gradient backward)."""
+    import torch
+
+    family, axis = PAR_FAMILIES[path][:2]
+    elt = torch.empty(0, dtype=cfg.dtype).element_size()
+    again = 1 if cfg.remat else 0
+    if family == "llama":
+        return {"all_reduce": tp_all_reduce_bytes(cfg, b, s)}
+    if family == "vit":
+        seq = cfg.num_patches + 1
+        return {"all_reduce": (4 + again) * cfg.n_layers * b * seq
+                * cfg.d_model * elt + b * cfg.num_patches * cfg.d_model * elt}
+    tokens = b * s
+    capacity = max(1, int(cfg.capacity_factor * tokens * 2 / cfg.n_experts))
+    experts = cfg.n_experts * capacity * cfg.d_model * 4
+    if axis == "ep":
+        return {"all_gather": (2 + again) * cfg.n_layers * experts // n}
+    act = tokens * cfg.d_model * elt
+    return {"all_reduce": (2 + again) * cfg.n_layers * (act + experts)
+            + 2 * act + 3 * tokens * 4}
+
+
+def family_blocks(path: str, cfg, n: int = PAR_RANKS) -> dict:
+    """A rank's block shapes of the params a family path splits (and of
+    one it keeps whole) on n ranks: Megatron's columns and rows."""
+    family, axis = PAR_FAMILIES[path][:2]
+    d, f = cfg.d_model, cfg.d_ff
+    if family == "llama":
+        kv = 2 * cfg.n_kv_heads * cfg.head_dim
+        return {"wq": [d, d // n], "wkv": [d, kv // n], "wo": [d // n, d],
+                "w_gate": [d, f // n], "w_down": [f // n, d],
+                "embed": [cfg.vocab_size // n, d],
+                "head": [d, cfg.vocab_size // n]}
+    if family == "vit":
+        return {"wqkv": [d, 3 * d // n], "wo": [d // n, d],
+                "w1": [d, f // n], "w2": [f // n, d],
+                "patch": [cfg.patch_dim // n, d],
+                "head": [d, cfg.num_classes]}
+    t, x = (n, 1) if axis == "tp" else (1, n)
+    e = cfg.n_experts
+    return {"wqkv": [d, 3 * d // t], "wo": [d // t, d], "gate": [d, e],
+            "expert_w1": [e // x, d, f // t],
+            "expert_w2": [e // x, f // t, d],
+            "embed": [cfg.vocab_size // t, d]}
+
+
+@contextlib.contextmanager
+def planted_fault(family: str, fault: str):
+    """A planted fault in a family step's collectives while the block
+    runs (module attributes swapped, put back after): ``f_sums_dropped``
+    every "f" an identity both ways (ep: take_block's gradient not
+    gathered); ``sum_after_combine`` MoE's tp sum of the experts' outputs
+    after the combine; ``f_on_gate`` an "f" on MoE's router input too;
+    ``gather_summed`` ep's gather with allgather's reduce-scatter
+    backward."""
+    import torch
+
+    from ray_tpu_torch.parallel import moe as pmoe
+    from ray_tpu_torch.parallel import ops
+
+    module = family_api(family)[3]
+    swaps = []
+    if fault == "f_sums_dropped":
+        def narrow(x, axis_name, axis=0):
+            width = x.shape[axis] // ops.axis_size(axis_name)
+            return x.narrow(axis, ops.axis_index(axis_name) * width, width)
+        swaps = [(module, "grad_allreduce", lambda x, axis_name: x),
+                 (ops, "grad_allreduce", lambda x, axis_name: x),
+                 (ops, "take_block", narrow)]
+    elif fault == "sum_after_combine":
+        def after(ye, combine, tp, ep):
+            if ep is not None:
+                ye = ops.allgather_invariant(ye, ep, 0)
+            y = torch.einsum("ecd,tec->td", ye, combine)
+            return ops.allreduce(y, tp) if tp is not None else y
+        swaps = [(pmoe, "_combine", after)]
+    elif fault == "f_on_gate":
+        def logits(x, gate_w):
+            return ops.grad_allreduce(x, "tp").float() @ gate_w.float()
+        swaps = [(pmoe, "_router_logits", logits)]
+    elif fault == "gather_summed":
+        swaps = [(ops, "allgather_invariant",
+                  lambda x, axis_name, axis=0: ops.allgather(x, axis_name,
+                                                             axis=axis))]
+    else:
+        raise ValueError(f"unknown fault {fault!r}")
+    kept = [(obj, name, getattr(obj, name)) for obj, name, _ in swaps]
+    for obj, name, value in swaps:
+        setattr(obj, name, value)
+    try:
+        yield
+    finally:
+        for obj, name, value in kept:
+            setattr(obj, name, value)
+
+
+def _family_run(family: str, cfg, data, steps: int, device: str, mesh=None,
+                rules=None, fault=None) -> dict:
+    """``steps`` steps of a family's step from the seed-0 weights (on a
+    mesh: this rank's part), each ended by fetching the loss: the state,
+    the losses, step seconds, the first step's gradients (as the
+    optimizer read them) and, for MoE, each layer's kept routes of the
+    first step's forward. ``fault`` plants a ``planted_fault`` for the
+    run."""
+    import torch
+
+    from ray_tpu_torch.parallel import moe as pmoe
+
+    make = family_api(family)[0]
+    grads: list = []
+    init_state, train_step = make(cfg, optimizer=first_grads_optimizer(grads),
+                                  device=device, mesh=mesh, rules=rules)
+    state = init_state(torch.Generator(device=device).manual_seed(0))
+    planted = planted_fault(family, fault) if fault \
+        else contextlib.nullcontext()
+    routes: list = []
+    losses, steps_s = [], []
+    with planted:
+        for i in range(steps):
+            kept = record_routes(routes) if family == "moe" and i == 0 \
+                else None
+            t0 = time.perf_counter()
+            try:
+                state, m = train_step(state, data)
+                losses.append(float(m["loss"]))  # the fetch ends the step
+            finally:
+                if kept is not None:
+                    pmoe.top2_gating = kept
+            steps_s.append(time.perf_counter() - t0)
+    return {"state": state, "losses": losses, "steps_s": steps_s,
+            "grads": grads,
+            # the forward's calls come first; the remat recompute's after
+            "routes": routes[:cfg.n_layers]}
+
+
+def held_config(cfg):
+    """The config of a family path's held f32 steps: ``cfg`` in f32 with
+    PAR_F32_LAYERS layers."""
+    import torch
+
+    return dataclasses.replace(cfg, dtype=torch.float32,
+                               n_layers=min(cfg.n_layers, PAR_F32_LAYERS))
+
+
+def route_flip_share(routes, ref) -> float:
+    """The share of tokens (over every layer) whose kept experts differ
+    between two runs' recorded routes."""
+    import torch
+
+    if not ref:
+        return 0.0
+    a, b = (torch.stack([r.cpu() for r in x]) for x in (routes, ref))
+    return float((a != b).any(-1).float().mean())
+
+
+def par_family_reference(path: str, ref_path: str, overrides=None,
+                         batch=None, device: str = "cuda") -> dict:
+    """A family path's unsplit step in this process, from the seed-0
+    weights and batch: PAR_STEPS timed steps in the model dtype (losses,
+    step ms, peak memory), then PAR_F32_STEPS steps of ``held_config``;
+    what the ranks compare with (the losses and MoE's routes of both
+    runs, the f32 params and first gradients) saved to ``ref_path`` (CPU
+    tensors). (``overrides``, ``batch`` and ``device`` are for the CPU
+    tests.)"""
+    import torch
+
+    from ray_tpu_torch._tree import tree_map, tree_unflatten
+
+    family, _, b, s = PAR_FAMILIES[path]
+    b, s = batch or (b, s)
+    cfg = family_config(family, **(overrides or {}))
+    data = family_batch(family, cfg, b, s, device)
+    if device == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    timed = _family_run(family, cfg, data, PAR_STEPS, device)
+    peak = torch.cuda.max_memory_allocated() / 1e9 \
+        if device == "cuda" else None
+    del timed["state"]
+    held = _family_run(family, held_config(cfg), data, PAR_F32_STEPS,
+                       device)
+
+    def to_cpu(tree):
+        return tree_map(lambda t, _: t.detach().cpu(), tree)
+    params = held["state"]["params"]
+    torch.save({"losses": timed["losses"], "routes": timed["routes"],
+                "f32_losses": held["losses"], "f32_routes": held["routes"],
+                "f32_params": to_cpu(params),
+                "f32_grads": to_cpu(tree_unflatten(params, held["grads"]))},
+               ref_path)
+    del held, params
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    return {"losses": timed["losses"],
+            "step_ms": [t * 1e3 for t in timed["steps_s"]],
+            "max_memory_allocated_gb": peak}
+
+
+def par_family_rank(path: str, ref_path: str, overrides=None, batch=None,
+                    device: str = "cuda") -> dict:
+    """One rank of a family path (PAR_FAMILIES), split over its axis from
+    the seed-0 weights and batch. PAR_STEPS timed steps in the model
+    dtype: launches and collectives counted over exactly them, step ms,
+    peak memory, this rank's blocks, the losses (and MoE's routes) beside
+    the unsplit step's. Then PAR_F32_STEPS steps of ``held_config`` (f32,
+    PAR_F32_LAYERS layers), whose params and first gradients, gathered
+    to the JAX layout, rank 0 holds to the unsplit f32 step's, with each
+    control of PAR_FAMILY_CONTROLS read through the same measure (the
+    stepped ones one f32 step each from the same weights under
+    ``planted_fault``). bf16's rounding of the partial sums moves a deep
+    stack's small gradients and MoE's routes too far for an elementwise
+    band; f32's does not."""
+    import torch
+    import torch.distributed as dist
+
+    from ray_tpu_torch._tree import tree_leaves, tree_unflatten
+    from ray_tpu_torch.models import shard_batch
+    from ray_tpu_torch.models._training import gather_params
+    from ray_tpu_torch.ops import _kernels
+    from ray_tpu_torch.parallel import MeshConfig, make_mesh, ops, tp_rules
+
+    family, axis, b, s = PAR_FAMILIES[path]
+    b, s = batch or (b, s)
+    cfg = family_config(family, **(overrides or {}))
+    _, axes_of, init, module = family_api(family)
+    if device == "cuda":
+        torch.backends.cuda.matmul.allow_tf32 = False
+    world = dist.get_world_size()
+    mesh = make_mesh(MeshConfig(dp=1, **{axis: world}), device_type=device)
+    rules = tp_rules()
+    data = shard_batch(family_batch(family, cfg, b, s, device), mesh)
+    f32 = held_config(cfg)
+
+    def whole(run, leaves=None):
+        params = run["state"]["params"]
+        tree = params if leaves is None else tree_unflatten(params, leaves)
+        return gather_params(tree, axes_of(cfg), mesh, rules,
+                             module.TP_SEGMENTS)
+
+    if device == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    ops.TRAFFIC.reset()
+    timed = _family_run(family, cfg, data, PAR_STEPS, device, mesh, rules)
+    launches = dict(_kernels.LAUNCHES)
+    traffic = ops.TRAFFIC.snapshot()
+    params = timed["state"]["params"]
+    named = {**params["layers"][0],
+             **{k: v for k, v in params.items() if k != "layers"}}
+    row = {"pid": os.getpid(), "rank": dist.get_rank(),
+           "launches": launches, "traffic": traffic,
+           "losses": timed["losses"],
+           "step_ms": [t * 1e3 for t in timed["steps_s"]],
+           "blocks": {k: list(named[k].shape)
+                      for k in family_blocks(path, cfg, world)},
+           "block_bytes": sum(p.numel() * p.element_size()
+                              for p in tree_leaves(params)),
+           "max_memory_allocated_gb": torch.cuda.max_memory_allocated()
+           / 1e9 if device == "cuda" else None}
+    routes = timed["routes"]
+    del timed, params, named
+    held = _family_run(family, f32, data, PAR_F32_STEPS, device, mesh,
+                       rules)
+    row["f32_losses"] = held["losses"]
+    full, full_grads = whole(held), whole(held, held["grads"])
+    row["params_bytes"] = sum(p.numel() * p.element_size()
+                              for p in tree_leaves(full))
+    f32_routes = held["routes"]
+    del held
+    stepped = {}
+    for fault in sorted(PAR_FAMILY_CONTROLS[path] - {
+            "doubled", "wkv_contiguous_blocks", "wqkv_contiguous_blocks"}):
+        run = _family_run(family, f32, data, 1, device, mesh, rules, fault)
+        stepped[fault] = whole(run, run["grads"])
+        del run
+    if dist.get_rank() == 0:
+        saved = torch.load(ref_path, map_location=device)
+        ref, ref_grads = saved["f32_params"], saved["f32_grads"]
+        row["ref_losses"] = saved["losses"]
+        row["ref_f32_losses"] = saved["f32_losses"]
+        if family == "moe":
+            row["route_flip_share"] = route_flip_share(routes,
+                                                       saved["routes"])
+            row["f32_route_flip_share"] = route_flip_share(
+                f32_routes, saved["f32_routes"])
+        start = init(f32, torch.Generator(device=device).manual_seed(0),
+                     device)
+        row["param_errs"] = _leaf_errs(full, ref)
+        row["param_move_errs"] = [
+            float((a.float() - b.float()).norm()
+                  / (b.float() - c.float()).norm().clamp_min(1e-30))
+            for a, b, c in zip(tree_leaves(full), tree_leaves(ref),
+                               tree_leaves(start))]
+        row["grad_errs"] = _leaf_errs(full_grads, ref_grads)
+        controls = {"doubled": max(_leaf_errs(
+            [2 * g for g in tree_leaves(full_grads)], ref_grads))}
+        for key, parts in (("wkv", 2), ("wqkv", 3)):
+            if f"{key}_contiguous_blocks" in PAR_FAMILY_CONTROLS[path]:
+                controls[f"{key}_contiguous_blocks"] = max(_leaf_errs(
+                    [contiguous_wqkv(lay[key], world, parts)
+                     for lay in full_grads["layers"]],
+                    [lay[key] for lay in ref_grads["layers"]]))
+        for fault, got in stepped.items():
+            controls[fault] = max(_leaf_errs(got, ref_grads))
+        row["grad_control_errs"] = controls
+    return row
+
+
 def parallel_checks(rows: dict, ref_losses: list, driver_pid: int
                     ) -> dict:
     """Every check of the parallel phase by name, from its rows."""
@@ -4627,6 +5058,50 @@ def parallel_checks(rows: dict, ref_losses: list, driver_pid: int
         checks[f"{kind}_loss"] = all(
             abs(r["loss"] - r["ref_loss"]) <= TOL_PAR_LOSS * r["ref_loss"]
             for r in ranks)
+    for path, (family, _, b, s) in PAR_FAMILIES.items():
+        checks.update(family_checks(path, rows[path], driver_pid,
+                                    family_config(family), b, s))
+    return checks
+
+
+def family_checks(path: str, ranks: list, driver_pid: int, cfg, b: int, s
+                  ) -> dict:
+    """The checks of one family path, by name, from its ranks' rows (rank
+    0's carries the unsplit step's losses and the f32 comparisons)."""
+    r0 = ranks[0]
+    tol = TOL_PAR_F32
+    errs = [abs(a - b) / abs(b) for a, b in zip(r0["f32_losses"],
+                                                r0["ref_f32_losses"])]
+    want = {op: n * PAR_STEPS
+            for op, n in family_bytes(path, cfg, b, s, len(ranks)).items()}
+    controls = r0["grad_control_errs"]
+    checks = {
+        f"{path}_launches": all(r["launches"]
+                                == parallel_expected_launches(path)
+                                for r in ranks),
+        f"{path}_other_processes": len({r["pid"] for r in ranks}
+                                       | {driver_pid}) == len(ranks) + 1,
+        f"{path}_ranks_agree": all(
+            r["losses"] == r0["losses"]
+            and r["f32_losses"] == r0["f32_losses"] for r in ranks),
+        f"{path}_losses": len(r0["losses"]) == PAR_STEPS
+        and len(errs) == PAR_F32_STEPS
+        and all(math.isfinite(x) for x in r0["losses"])
+        and max(errs) <= tol["loss"],
+        f"{path}_params": max(r0["param_move_errs"]) <= TOL_PAR_PARAMS,
+        f"{path}_grads": max(r0["grad_errs"]) <= tol["grads"],
+        f"{path}_grad_controls_rejected": set(controls)
+        == PAR_FAMILY_CONTROLS[path]
+        and all(err > tol["grads"] for err in controls.values()),
+        f"{path}_bytes": all({op: r["bytes"] for op, r in
+                              rank["traffic"].items()} == want
+                             for rank in ranks),
+        f"{path}_blocks": all(r["blocks"]
+                              == family_blocks(path, cfg, len(ranks))
+                              for r in ranks)}
+    if PAR_FAMILIES[path][0] == "moe":
+        checks[f"{path}_routes"] = \
+            r0["f32_route_flip_share"] <= TOL_MOE_ROUTE_FLIPS
     return checks
 
 
@@ -4638,12 +5113,14 @@ def phase_parallel() -> dict:
     import torch
 
     import chip_smoke
-    from ray_tpu_torch.parallel.dryrun import dryrun_multichip
+    from ray_tpu_torch.parallel import dryrun
     from ray_tpu_torch.parallel.launch import RankPool
 
     t_phase = time.perf_counter()
     torch.cuda.empty_cache()
     rows: dict = {}
+    refs: dict = {}
+    seconds: dict = {}
     ref_dir = tempfile.mkdtemp(prefix="rtt_parallel_")
     ref_path = os.path.join(ref_dir, "tp1_params.pt")
     try:
@@ -4660,16 +5137,27 @@ def phase_parallel() -> dict:
             rows["moe"] = pool.run(chip_smoke.par_moe_rank)
             for kind in ("gpipe", "1f1b"):
                 rows[kind] = pool.run(chip_smoke.par_pp_rank, kind)
+            # The Megatron family paths, each against its unsplit step
+            # run here while the ranks wait.
+            for path in PAR_FAMILIES:
+                t0 = time.perf_counter()
+                path_ref = os.path.join(ref_dir, f"{path}.pt")
+                refs[path] = par_family_reference(path, path_ref)
+                rows[path] = pool.run(chip_smoke.par_family_rank, path,
+                                      path_ref)
+                os.remove(path_ref)
+                seconds[path] = time.perf_counter() - t0
+            # dryrun_multichip's ranks' work in these ranks.
+            t0 = time.perf_counter()
+            dry = pool.run(dryrun.dryrun_rank, PAR_RANKS, "cuda")[0]
+            dryrun_s = time.perf_counter() - t0
     finally:
         for name in os.listdir(ref_dir):
             os.remove(os.path.join(ref_dir, name))
         os.rmdir(ref_dir)
-    t0 = time.perf_counter()
-    dryrun = dryrun_multichip(PAR_RANKS)
-    dryrun_s = time.perf_counter() - t0
 
     checks = parallel_checks(rows, ref["losses"], os.getpid())
-    checks["dryrun"] = all(math.isfinite(dryrun[k]["loss"])
+    checks["dryrun"] = all(math.isfinite(dry[k]["loss"])
                            for k in ("gpt", "pipeline"))
     ref_step = statistics.median(ref["step_ms"][1:])
     for kind in ("tp", "fsdp"):
@@ -4699,10 +5187,44 @@ def phase_parallel() -> dict:
         emit(f"parallel_{kind}", ranks=PAR_RANKS, transport="gloo",
              rows=[{k: (per_step(v, 1) if k == "traffic" else v)
                     for k, v in r.items()} for r in rows[kind]])
+    for path, (family, axis, b, s) in PAR_FAMILIES.items():
+        r0, ref_f = rows[path][0], refs[path]
+        cfg = family_config(family)
+        median = statistics.median(r0["step_ms"][1:])
+        ref_median = statistics.median(ref_f["step_ms"][1:])
+        emit(f"parallel_{path}", ranks=PAR_RANKS, transport="gloo",
+             family=family, axis=axis, remat=cfg.remat, batch=b, seq=s,
+             dtype="bfloat16", steps=PAR_STEPS, losses=r0["losses"],
+             unsplit_losses=ref_f["losses"],
+             route_flip_share=r0.get("route_flip_share"),
+             f32_steps=PAR_F32_STEPS, f32_losses=r0["f32_losses"],
+             unsplit_f32_losses=r0["ref_f32_losses"],
+             f32_route_flip_share=r0.get("f32_route_flip_share"),
+             f32_tol=TOL_PAR_F32, param_move_tol=TOL_PAR_PARAMS,
+             max_param_move_err=max(r0["param_move_errs"]),
+             max_param_err=max(r0["param_errs"]),
+             max_grad_err=max(r0["grad_errs"]), grad_errs=r0["grad_errs"],
+             grad_control_errs=r0["grad_control_errs"],
+             step_ms=[r["step_ms"] for r in rows[path]],
+             step_ms_median=median, unsplit_step_ms=ref_f["step_ms"],
+             unsplit_step_ms_median=ref_median,
+             step_ratio=median / ref_median,
+             launches=[r["launches"] for r in rows[path]],
+             expected_launches=parallel_expected_launches(path),
+             collectives_per_step=[per_step(r["traffic"], PAR_STEPS)
+                                   for r in rows[path]],
+             bytes_reckoned=family_bytes(path, cfg, b, s),
+             blocks=r0["blocks"], block_bytes=r0["block_bytes"],
+             params_bytes=r0["params_bytes"],
+             max_memory_allocated_gb=[r["max_memory_allocated_gb"]
+                                      for r in rows[path]],
+             unsplit_max_memory_allocated_gb=ref_f[
+                 "max_memory_allocated_gb"],
+             path_s=seconds[path])
     emit("parallel", ranks=PAR_RANKS, backend="gloo", device="cuda:0",
          transports=transports([{k: rows[k][i]["traffic"] for k in rows}
                                 for i in range(PAR_RANKS)]),
-         dryrun=dryrun, dryrun_s=dryrun_s,
+         dryrun=dry, dryrun_s=dryrun_s,
          phase_s=time.perf_counter() - t_phase, checks=checks)
     failed = [name for name, ok in checks.items() if not ok]
     check(not failed, f"parallel checks failed: {failed}")
@@ -4714,7 +5236,9 @@ def phase_parallel() -> dict:
     return {"tp_train_ranks": summed(["tp"]),
             "fsdp_train_ranks": summed(["fsdp"]),
             "ulysses_ranks": summed(["ulysses"]),
-            "pp_train_ranks": summed(["gpipe", "1f1b"])}
+            "pp_train_ranks": summed(["gpipe", "1f1b"]),
+            **{f"{path}_train_ranks": summed([path])
+               for path in PAR_FAMILIES}}
 
 
 # The rllib phase: the port's RLlib on its own control plane. The card's
@@ -5880,33 +6404,47 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    peaks = phase_device()
-    designs = phase_build()
-    compared = phase_compare(peaks)
-    compared_bwd = phase_compare_bwd(peaks)
-    over_limit = phase_heads_over_limit(peaks)
-    serving, slice_ctx = phase_slice()
-    dag_fused = phase_dag_fused(slice_ctx)
+    t_start = time.perf_counter()
+    seconds: dict = {}
+
+    def timed(name, fn, *args):
+        t0 = time.perf_counter()
+        try:
+            return fn(*args)
+        finally:
+            seconds[name] = time.perf_counter() - t0
+
+    peaks = timed("device", phase_device)
+    designs = timed("build", phase_build)
+    compared = timed("compare", phase_compare, peaks)
+    compared_bwd = timed("compare_bwd", phase_compare_bwd, peaks)
+    over_limit = timed("heads_over_limit", phase_heads_over_limit, peaks)
+    serving, slice_ctx = timed("slice", phase_slice)
+    dag_fused = timed("dag_fused", phase_dag_fused, slice_ctx)
     del slice_ctx
-    phase_online()
-    phase_runtime()
-    pool_actor = phase_control_plane()
-    multinode = phase_multinode()
-    autoscale = phase_autoscale()
-    cli_client = phase_cli_client()
-    trained = phase_train(peaks)
-    train_dp = phase_train_dp(peaks, trained[True]["losses"])
-    train_feed = phase_train_feed(peaks)
-    libraries = phase_libraries(trained[True]["losses"][0])
-    parallel = phase_parallel()
-    phase_train_vs_cpu()
-    phase_train_profile()
-    llama = phase_llama_train(peaks)
-    phase_llama_vs_cpu()
-    vit = phase_vit()
-    moe = phase_moe()
-    phase_resnet()
-    phase_rl()
+    timed("online", phase_online)
+    timed("runtime", phase_runtime)
+    pool_actor = timed("serve_llm+processor", phase_control_plane)
+    multinode = timed("multinode", phase_multinode)
+    autoscale = timed("autoscale", phase_autoscale)
+    cli_client = timed("cli_client", phase_cli_client)
+    trained = timed("train", phase_train, peaks)
+    train_dp = timed("train_dp", phase_train_dp, peaks,
+                     trained[True]["losses"])
+    train_feed = timed("train_feed", phase_train_feed, peaks)
+    libraries = timed("libraries", phase_libraries,
+                      trained[True]["losses"][0])
+    parallel = timed("parallel", phase_parallel)
+    timed("train_vs_cpu", phase_train_vs_cpu)
+    timed("train_profile", phase_train_profile)
+    llama = timed("llama_train", phase_llama_train, peaks)
+    timed("llama_vs_cpu", phase_llama_vs_cpu)
+    vit = timed("vit", phase_vit)
+    moe = timed("moe", phase_moe)
+    timed("resnet", phase_resnet)
+    timed("rllib+rllib_offpolicy+dreamer", phase_rl)
+    emit("phase_seconds", seconds=seconds,
+         total_s=time.perf_counter() - t_start)
 
     # Launches on each main path, each counted over exactly its run:
     # the batch serving slice, its 8 greedy steps as CUDA-graph replays
@@ -5921,7 +6459,8 @@ def main() -> int:
     # train_feed worker (each counted in its process), every step of the libraries phase's Tune trials (summed
     # over the trials' processes) and its workflow's GPU step (summed
     # over that step's runs), the parallel phase's tp=2 and fsdp=2 steps,
-    # Ulysses and pipelines (each summed over its 2 ranks' processes), one
+    # Ulysses, pipelines and the llama, ViT and MoE tp=2 and MoE ep=2
+    # steps (each summed over its 2 ranks' processes), one
     # llama, ViT and MoE train step each, and one ViT classifier call.
     pool = {name: pool_actor[name] for name in serving}
     paths = {"serving": serving, "dag_fused_replays": dag_fused,

@@ -12,9 +12,11 @@ the global batch (``gpt.shard_batch``). Per step:
 * fsdp: the loss runs on params gathered over ``fsdp`` by one autograd
   Function (all-gather forward, reduce-scatter of the gradients
   backward), so the gradients come back as this rank's blocks;
-* tp: the family's loss runs its tensor-parallel form on the tp blocks
-  (GPT only; the collectives are in its model code), and its gradients
-  are complete on each rank;
+* tp (and MoE's ep): the family's loss runs its Megatron form on the
+  blocks (GPT, llama, ViT and the MoE decoder; the collectives are in
+  the model code), and its gradients are complete on each rank.
+  ``split_model_axes`` checks that the rules split each param as the
+  family's layout table has it and raises for any other split;
 * dp, dp_dcn (and fsdp for a param it does not shard): the gradients
   are summed over the batch axes in flattened f32 all-reduces, one per
   set of axes, and every gradient and the loss are divided by the
@@ -24,10 +26,13 @@ the global batch (``gpt.shard_batch``). Per step:
 The batch axes are ``dp_dcn``, ``dp`` and ``fsdp``. Each rank's loss is
 the mean over its rows; with equal rows a rank, the mean of those means
 is the global batch's mean, whether or not ranks of an axis hold the
-same rows. Pipeline, sequence and expert parallelism run through
-``parallel.pipeline``, ``parallel.sequence`` and ``parallel.moe`` under
-``shard_map``, as in the JAX package; a mesh with ``pp``, ``sp`` or
-``ep`` above 1 raises here.
+same rows. The MoE decoder routes the tokens of every batch shard as one
+batch (``parallel.moe.top2_gating(token_axes=)``), as JAX's step routes
+the global batch. Pipeline and sequence parallelism run through
+``parallel.pipeline`` and ``parallel.sequence`` under ``shard_map``, as
+in the JAX package, whose step only replicates over ``pp`` and ``sp``: a
+mesh with ``pp`` or ``sp`` above 1 raises here, and so does ``ep`` above
+1 for a family without experts.
 """
 
 from __future__ import annotations
@@ -46,9 +51,10 @@ from ..parallel.partition import PartitionSpec, named_sharding
 from .convert import params_to
 
 BATCH_AXES = ("dp_dcn", "dp", "fsdp")
-# Axes whose parallelism lives in its own functions, not in the step.
+# Axes whose parallelism lives in its own functions, not in the step
+# (ep runs in the MoE step, which names it among its model axes).
 _OWN_FUNCTIONS = ("pp", "sp", "ep")
-_ROADMAP = "ROADMAP.md, Queue 1"
+_ROADMAP = "ROADMAP.md, Queue 1, \"Left out on purpose\""
 
 
 def default_optimizer(params: List[torch.Tensor],
@@ -65,17 +71,28 @@ def _mesh_axes(mesh) -> Dict[str, int]:
             for i, name in enumerate(mesh.mesh_dim_names or ())}
 
 
-def check_mesh(mesh) -> Dict[str, int]:
-    """The mesh's axis sizes, raising for an axis the step does not run."""
+def check_mesh(mesh, model_axes: Sequence[str] = ()) -> Dict[str, int]:
+    """The mesh's axis sizes, raising for an axis the step does not run:
+    ``pp`` and ``sp`` above 1, and ``ep`` above 1 unless the family's
+    ``model_axes`` name it (the MoE decoder's)."""
     sizes = _mesh_axes(mesh)
-    own = {a: n for a, n in sizes.items() if a in _OWN_FUNCTIONS and n > 1}
+    own = {a: n for a, n in sizes.items()
+           if a in _OWN_FUNCTIONS and a not in model_axes and n > 1}
     if own:
         raise NotImplementedError(
-            f"mesh axes {own}: the train step runs dp, dp_dcn, fsdp and tp; "
-            "pipeline, sequence and expert parallelism run through "
-            "parallel.pipeline, parallel.sequence and parallel.moe under "
-            f"shard_map, as in the JAX package ({_ROADMAP})")
+            f"mesh axes {own}: the train step runs dp, dp_dcn, fsdp and tp "
+            "(and ep for the MoE decoder); pipeline, sequence and expert "
+            "parallelism run through parallel.pipeline, parallel.sequence "
+            "and parallel.moe under shard_map, as in the JAX package, "
+            f"whose step only replicates over them ({_ROADMAP})")
     return sizes
+
+
+def batch_axes_of(mesh) -> Tuple[str, ...]:
+    """The batch axes above 1 of ``mesh``, in the mesh's order: the axes
+    ``shard_batch`` splits the rows over."""
+    sizes = _mesh_axes(mesh) if mesh is not None else {}
+    return tuple(a for a in BATCH_AXES if sizes.get(a, 1) > 1)
 
 
 def _paired(params: Any, axes: Any, key: Optional[str] = None
@@ -118,6 +135,41 @@ def sharding_axes(axes: Any, mesh, rules) -> set:
             for entry in leaf_spec(mesh, rules, ax) for a in _names(entry)}
 
 
+def split_model_axes(family: str, axes: Dict, mesh, rules,
+                     layout: Dict[str, Dict[str, Tuple[int, ...]]],
+                     heads: int, model_axes: Sequence[str] = ("tp",)
+                     ) -> Tuple[str, ...]:
+    """The axes of ``model_axes`` over which the rules split some of the
+    family's params on ``mesh`` (empty without a mesh and rules), checking
+    that they split every param as Megatron's layout has it.
+
+    ``layout`` maps a param's key (a layer's, or a top-level one) to
+    ``{axis: the dims that axis splits}``; a key or an axis it leaves out
+    is replicated over that axis. Every layer has the same axes, so the
+    first stands for all. Raises NotImplementedError, naming the param
+    and its dims, for rules that split a param otherwise, and ValueError
+    when ``tp`` does not divide the attention's ``heads``."""
+    if mesh is None or rules is None:
+        return ()
+    split = sharding_axes(axes, mesh, rules)
+    used = tuple(a for a in model_axes if a in split)
+    if not used:
+        return ()
+    tops = [(k, v) for k, v in axes.items() if k != "layers"]
+    for key, ax in list(axes["layers"][0].items()) + tops:
+        spec = leaf_spec(mesh, rules, ax)
+        for axis in used:
+            dims = tuple(d for d, e in enumerate(spec) if axis in _names(e))
+            want = layout.get(key, {}).get(axis, ())
+            if dims != want:
+                raise NotImplementedError(
+                    f"rules split {family}'s {key} over {axis} on dims "
+                    f"{dims}; the Megatron {family} splits it on {want}")
+    if "tp" in used and heads % _mesh_axes(mesh)["tp"]:
+        raise ValueError(f"{heads} heads do not split over tp")
+    return used
+
+
 def _block(x: torch.Tensor, dim: int, index: int, size: int,
            segments: int = 1) -> torch.Tensor:
     """Block ``index`` of ``size`` along ``dim``; a dim made of
@@ -157,7 +209,6 @@ def place_params(params: Dict, axes: Dict, mesh, rules,
     piece. Returns a new tree of the blocks."""
     import torch.distributed as dist
 
-    check_mesh(mesh)
     segments = segments or {}
     paired = _paired(params, axes)
     if dist.get_world_size() > 1:
@@ -313,11 +364,12 @@ def make_train_step_for(
     ``gather_params`` gives them whole) and each step takes this rank's
     rows of the global batch; see the module docstring for what a step
     does on each axis. ``model_axes`` names the axes whose split the
-    family's ``loss_fn`` runs itself (GPT's ``("tp",)``; its loss calls
-    collectives by axis name, bound to ``mesh`` over the forward and
-    backward); rules that split a param over any other axis but ``fsdp``
-    raise. The loss returned is the global batch's, as JAX's is. The
-    mesh's device type must be ``device``'s."""
+    family's ``loss_fn`` runs itself (``("tp",)`` for GPT, llama and
+    ViT, ``("tp", "ep")`` for the MoE decoder; the loss calls collectives
+    by axis name, bound to ``mesh`` over the forward and backward);
+    rules that split a param over any other axis but ``fsdp`` raise.
+    The loss returned is the global batch's, as JAX's is. The mesh's
+    device type must be ``device``'s."""
     device = resolve_device(device)
     make_optimizer = optimizer or default_optimizer
     placed = mesh is not None and rules is not None and axes is not None
@@ -328,7 +380,7 @@ def make_train_step_for(
         if mesh.device_type != device.type:
             raise ValueError(f"the mesh is on {mesh.device_type}, the step "
                              f"on {device}")
-        sizes = check_mesh(mesh)
+        sizes = check_mesh(mesh, model_axes)
     if placed:
         split = sharding_axes(axes, mesh, rules)
         foreign = split - set(model_axes) - {"fsdp"}
@@ -336,7 +388,7 @@ def make_train_step_for(
             raise NotImplementedError(
                 f"rules split params over {sorted(foreign)}, which this "
                 f"family's step does not run ({_ROADMAP})")
-    batch_axes = tuple(a for a in BATCH_AXES if sizes.get(a, 1) > 1)
+    batch_axes = batch_axes_of(mesh)
     n_batch = math.prod(sizes[a] for a in batch_axes)
 
     def plan_for(params) -> None:

@@ -35,15 +35,18 @@ from torch.utils.checkpoint import checkpoint
 from .._device import DeviceLike, resolve_device
 from ..ops.attention import flash_attention
 from ..ops.layers import rms_norm, rope
-from ..parallel.ops import (allgather, allreduce, allreduce_max, axis_index,
-                            grad_allreduce, remat_context)
+from ..parallel.ops import allgather, allreduce, grad_allreduce, remat_context
 from ._init import normal
-from ._training import (gather_params, leaf_spec, make_train_step_for,
-                        place_params, sharding_axes)
+from ._megatron import embed_tokens, log_likelihood_sum, vocab_offset
+from ._training import (gather_params, make_train_step_for, place_params,
+                        split_model_axes)
 
 # wqkv's columns are [q | k | v]: a tp split takes each rank's heads of
 # each of the three (param key -> (dim, parts)).
 TP_SEGMENTS = {"wqkv": (1, 3)}
+# Megatron's layout: the dims tp splits, by param (the rest replicated).
+TP_LAYOUT = {"wqkv": {"tp": (1,)}, "wo": {"tp": (0,)}, "w1": {"tp": (1,)},
+             "w2": {"tp": (0,)}, "embed": {"tp": (0,)}, "head": {"tp": (1,)}}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -176,20 +179,11 @@ def _head(params: Dict) -> torch.Tensor:
     return params["embed"].T if head is None else head
 
 
-def _vocab_offset(params: Dict, tp: str) -> int:
-    """The first vocab row of this rank's block of the embedding."""
-    return axis_index(tp) * params["embed"].shape[0]
-
-
 def _embed(params: Dict, tokens: torch.Tensor,
            tp: Optional[str]) -> torch.Tensor:
     if tp is None:
         return params["embed"][tokens]
-    emb = params["embed"]
-    local = tokens - _vocab_offset(params, tp)
-    inside = (local >= 0) & (local < emb.shape[0])
-    x = emb[local.clamp(0, emb.shape[0] - 1)] * inside[..., None]
-    return allreduce(x, tp)
+    return embed_tokens(params["embed"], tokens, tp)
 
 
 def _backbone(params: Dict, tokens: torch.Tensor, cfg: GPTConfig,
@@ -252,7 +246,7 @@ def gpt_loss(params: Dict, batch: Tuple[torch.Tensor, torch.Tensor],
     chunk = max(chunk, 1)
     if tp_axis is not None:
         xf = grad_allreduce(xf, tp_axis)
-        lo = _vocab_offset(params, tp_axis)
+        lo = vocab_offset(params["embed"].shape[0], tp_axis)
     total = torch.zeros((), dtype=torch.float32, device=x.device)
     for start in range(0, rows, chunk):
         lg = (xf[start:start + chunk] @ head).float()
@@ -261,47 +255,13 @@ def gpt_loss(params: Dict, batch: Tuple[torch.Tensor, torch.Tensor],
             tgt = lg.gather(1, ts[:, None])[:, 0]
             total = total + (tgt - torch.logsumexp(lg, dim=-1)).sum()
             continue
-        local = ts - lo
-        inside = (local >= 0) & (local < lg.shape[1])
-        tgt = lg.gather(1, local.clamp(0, lg.shape[1] - 1)[:, None])[:, 0]
-        m = allreduce_max(lg.max(dim=-1).values, tp_axis)
-        sums = allreduce(torch.stack([
-            (lg - m[:, None]).exp().sum(-1),
-            torch.where(inside, tgt, torch.zeros_like(tgt))]), tp_axis)
-        total = total + (sums[1] - (m + sums[0].log())).sum()
+        total = total + log_likelihood_sum(lg, ts, tp_axis, lo)
     return -total / rows
 
 
 # ---------------------------------------------------------------------------
 # training step
 # ---------------------------------------------------------------------------
-def _tp_axis(cfg: GPTConfig, mesh, rules) -> Optional[str]:
-    """``"tp"`` when the rules split GPT's params over a ``tp`` above 1,
-    checking that they split them as Megatron's layout has it; else
-    None."""
-    if mesh is None or rules is None:
-        return None
-    axes = gpt_param_axes(cfg)
-    if "tp" not in sharding_axes(axes, mesh, rules):
-        return None
-    want = {"ln1": (), "wqkv": (1,), "wo": (0,), "ln2": (), "w1": (1,),
-            "w2": (0,), "embed": (0,), "lnf": (), "head": (1,)}
-    layer = axes["layers"][0]
-    tops = {k: v for k, v in axes.items() if k != "layers"}
-    for key, ax in list(layer.items()) + list(tops.items()):
-        spec = leaf_spec(mesh, rules, ax)
-        dims = tuple(d for d, e in enumerate(spec)
-                     if e is not None and "tp" in ((e,) if isinstance(
-                         e, str) else e))
-        if dims != want[key]:
-            raise NotImplementedError(
-                f"rules split GPT's {key} over tp on dims {dims}; the "
-                f"tensor-parallel GPT splits it on {want[key]}")
-    if cfg.n_heads % mesh.size(mesh.mesh_dim_names.index("tp")):
-        raise ValueError(f"{cfg.n_heads} heads do not split over tp")
-    return "tp"
-
-
 def make_train_step(cfg: GPTConfig, optimizer=None,
                     device: DeviceLike = None, mesh=None, rules=None):
     """Build (init_state, train_step) for ``cfg`` on ``device`` (None: the
@@ -313,7 +273,8 @@ def make_train_step(cfg: GPTConfig, optimizer=None,
     ``gather_gpt_params(state["params"], cfg, mesh, rules)`` gives them
     whole. See ``_training.make_train_step_for``."""
     device = resolve_device(device)
-    tp = _tp_axis(cfg, mesh, rules)
+    tp = "tp" if split_model_axes("GPT", gpt_param_axes(cfg), mesh, rules,
+                                  TP_LAYOUT, cfg.n_heads) else None
     return make_train_step_for(
         lambda generator: gpt_init(cfg, generator, device),
         lambda params, batch: gpt_loss(params, batch, cfg, tp),

@@ -7,6 +7,16 @@ reshape and one matmul, not a convolution. Matmuls run in the model
 dtype, norms and softmax in f32, and attention is bidirectional
 (``causal=False``) through ``ops.flash_attention`` (the Hopper kernels
 on CUDA) over the patches and the CLS token: S = 197 for ViT-B/16 at 224.
+
+Tensor parallelism (``tp_axis``, a bound mesh axis; what XLA makes of
+``tp_rules`` in the JAX package) is Megatron's, as in ``models.gpt``:
+``wqkv`` (head-aligned, ``TP_SEGMENTS``) and ``w1`` split by columns,
+``wo`` and ``w2`` by rows, each pair joined by an "f" and a "g". The
+patch projection is row-parallel: its rows (logical ``"vocab"``) are
+split, each rank multiplies its columns of the patchified images, and
+the products are summed over ``tp``. ``cls``, ``pos`` and the class
+head stay replicated (no rule table names ``"classes"``). The loss and
+every gradient are the unsplit model's.
 """
 
 from __future__ import annotations
@@ -22,9 +32,18 @@ from torch.utils.checkpoint import checkpoint
 from .._device import DeviceLike, resolve_device
 from ..ops.attention import flash_attention
 from ..ops.layers import rms_norm
+from ..parallel.ops import (allreduce, axis_index, grad_allreduce,
+                            remat_context)
 from ._init import normal
-from ._training import make_train_step_for
+from ._training import make_train_step_for, split_model_axes
 from .convert import params_to
+
+# wqkv's columns are [q | k | v]: a tp split takes each rank's heads of
+# each of the three (param key -> (dim, parts)).
+TP_SEGMENTS = {"wqkv": (1, 3)}
+# Megatron's layout: the dims tp splits, by param (the rest replicated).
+TP_LAYOUT = {"wqkv": {"tp": (1,)}, "wo": {"tp": (0,)}, "w1": {"tp": (1,)},
+             "w2": {"tp": (0,)}, "patch": {"tp": (0,)}}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -149,26 +168,56 @@ def _patchify(images: torch.Tensor, cfg: ViTConfig) -> torch.Tensor:
     return x.reshape(b, nh * nw, p * p * c)
 
 
-def _block(x: torch.Tensor, layer: Dict, cfg: ViTConfig) -> torch.Tensor:
-    b, s, d = x.shape
-    h, hd = cfg.n_heads, cfg.head_dim
+def _block(x: torch.Tensor, layer: Dict, cfg: ViTConfig,
+           tp: Optional[str] = None) -> torch.Tensor:
+    """One block. With ``tp``, ``layer`` holds this rank's blocks: its
+    heads (n_heads / tp of them) and its d_ff / tp hidden units."""
+    b, s, _ = x.shape
+    hd = cfg.head_dim
     y = rms_norm(x, layer["ln1"])
+    if tp is not None:
+        y = grad_allreduce(y, tp)
+    width = layer["wqkv"].shape[-1] // 3
+    h = width // hd
     # q, k and v are strided views of the projection; the kernels take
     # contiguous rows.
     q, k, v = ((t.reshape(b, s, h, hd).transpose(1, 2).contiguous())
-               for t in (y @ layer["wqkv"]).split(d, dim=-1))
+               for t in (y @ layer["wqkv"]).split(width, dim=-1))
     attn = flash_attention(q, k, v, causal=False)  # bidirectional
-    attn = attn.transpose(1, 2).reshape(b, s, d)
-    x = x + attn @ layer["wo"]
+    attn = attn.transpose(1, 2).reshape(b, s, width)
+    out = attn @ layer["wo"]
+    if tp is not None:
+        out = allreduce(out, tp)
+    x = x + out
     # jax.nn.gelu's default is the tanh form.
     y = rms_norm(x, layer["ln2"])
-    return x + F.gelu(y @ layer["w1"], approximate="tanh") @ layer["w2"]
+    if tp is not None:
+        y = grad_allreduce(y, tp)
+    out = F.gelu(y @ layer["w1"], approximate="tanh") @ layer["w2"]
+    if tp is not None:
+        out = allreduce(out, tp)
+    return x + out
 
 
-def vit_forward(params: Dict, images: torch.Tensor,
-                cfg: ViTConfig) -> torch.Tensor:
-    """images [b, H, W, C] float -> logits [b, num_classes] (fp32)."""
-    x = _patchify(images.to(cfg.dtype), cfg) @ params["patch"]
+def _embed_patches(params: Dict, images: torch.Tensor, cfg: ViTConfig,
+                   tp: Optional[str]) -> torch.Tensor:
+    """[b, H, W, C] -> [b, num_patches, d]: the patch projection, with
+    ``tp`` row-parallel (this rank's rows of ``patch`` times its columns
+    of the patches, summed over the axis)."""
+    patches = _patchify(images.to(cfg.dtype), cfg)
+    if tp is None:
+        return patches @ params["patch"]
+    rows = params["patch"].shape[0]
+    mine = patches.narrow(-1, axis_index(tp) * rows, rows)
+    return allreduce(mine @ params["patch"], tp)
+
+
+def vit_forward(params: Dict, images: torch.Tensor, cfg: ViTConfig,
+                tp_axis: Optional[str] = None) -> torch.Tensor:
+    """images [b, H, W, C] float -> logits [b, num_classes] (fp32). With
+    ``tp_axis``, ``params`` are this rank's tp blocks; every rank gets
+    all the logits."""
+    x = _embed_patches(params, images, cfg, tp_axis)
     b = x.shape[0]
     cls = params["cls"].expand(b, 1, cfg.d_model).to(x.dtype)
     x = torch.cat([cls, x], dim=1)
@@ -180,18 +229,19 @@ def vit_forward(params: Dict, images: torch.Tensor,
             # dots_with_no_batch_dims_saveable); torch's checkpoint keeps
             # the block's input only and recomputes the whole block in
             # the backward. The values are the same.
-            x = checkpoint(_block, x, layer, cfg, use_reentrant=False)
+            x = checkpoint(_block, x, layer, cfg, tp_axis,
+                           use_reentrant=False, context_fn=remat_context)
         else:
-            x = _block(x, layer, cfg)
+            x = _block(x, layer, cfg, tp_axis)
     x = rms_norm(x[:, 0], params["lnf"])  # CLS token
     return (x @ params["head"]).float()
 
 
 def vit_loss(params: Dict, batch: Tuple[torch.Tensor, torch.Tensor],
-             cfg: ViTConfig) -> torch.Tensor:
+             cfg: ViTConfig, tp_axis: Optional[str] = None) -> torch.Tensor:
     """Cross entropy; batch = (images [b, H, W, C], labels [b] int)."""
     images, labels = batch
-    logp = F.log_softmax(vit_forward(params, images, cfg), dim=-1)
+    logp = F.log_softmax(vit_forward(params, images, cfg, tp_axis), dim=-1)
     return -logp.gather(1, labels.long()[:, None])[:, 0].mean()
 
 
@@ -199,13 +249,18 @@ def make_vit_train_step(cfg: ViTConfig, optimizer=None,
                         device: DeviceLike = None, mesh=None, rules=None):
     """(init_state, train_step) for ``cfg`` on ``device`` (None: the CUDA
     card); ``train_step(state, (images, labels))``, otherwise the
-    contract of ``models.gpt.make_train_step``."""
+    contract of ``models.gpt.make_train_step``, tensor parallelism
+    included. ``gather_params(state["params"], vit_param_axes(cfg),
+    mesh, rules, TP_SEGMENTS)`` gives the params whole."""
     device = resolve_device(device)
+    tp = "tp" if split_model_axes("ViT", vit_param_axes(cfg), mesh, rules,
+                                  TP_LAYOUT, cfg.n_heads) else None
     return make_train_step_for(
         lambda generator: vit_init(cfg, generator, device),
-        lambda params, batch: vit_loss(params, batch, cfg),
+        lambda params, batch: vit_loss(params, batch, cfg, tp),
         optimizer=optimizer, device=device, axes=vit_param_axes(cfg),
-        mesh=mesh, rules=rules)
+        mesh=mesh, rules=rules, model_axes=("tp",) if tp else (),
+        segments=TP_SEGMENTS)
 
 
 def make_classifier(cfg: ViTConfig, params: Optional[Dict] = None,

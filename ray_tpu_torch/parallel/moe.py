@@ -11,11 +11,16 @@ holds the expert with one tiled ``all_to_all``, runs its experts, and
 sends the outputs back with another; the aux loss is averaged over the
 axis. The dispatch, combine and exchanges are plain torch: the JAX
 package has no Pallas kernel for them.
+
+``moe_layer_split`` is the MoE train step's form on a mesh (what XLA
+makes of the JAX step's sharded expert weights): the tokens split over
+the batch axes and routed as one batch, each expert's d_ff split over
+``tp`` and the experts over ``ep``, the tokens replicated over both.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -23,29 +28,58 @@ import torch.nn.functional as F
 from . import ops
 
 
-def top2_gating(logits: torch.Tensor, capacity: int
+def _counts_before_and_total(counts: torch.Tensor, token_axes
+                             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per expert: the routes of the ranks before this one along
+    ``token_axes`` (row-major, the order of their blocks of the batch),
+    and of every rank. No gradient."""
+    if not token_axes:
+        return torch.zeros_like(counts), counts
+    mesh = ops.bound_mesh()
+    every = ops._all_gather(counts.detach()[None],
+                            ops.axis_group(mesh, token_axes), 0)
+    me = ops.axis_coordinate(mesh, token_axes)[0]
+    return every[:me].sum(0), every.sum(0)
+
+
+def top2_gating(logits: torch.Tensor, capacity: int,
+                token_axes: Optional[Sequence[str]] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Top-2 gating with capacity dropping.
 
     logits [tokens, experts] -> (dispatch [T, E, C] bool, combine
     [T, E, C] f32, aux_loss scalar f32). ``dispatch`` is ``combine > 0``
-    and carries no gradient; ties in the argmax go to the first expert."""
+    and carries no gradient; ties in the argmax go to the first expert.
+
+    With ``token_axes`` (mesh axes bound by ``ops.bind``) the tokens are
+    this rank's block of a batch split over those axes, and the blocks
+    are routed as one batch, as the JAX step routes its global batch:
+    each queue position counts the earlier ranks' routes to the expert
+    (first choices, then second), ``capacity`` is the whole batch's, and
+    the aux loss takes its means over every rank's tokens. Its gradient
+    then reaches every rank's router whole (the probabilities' sum is
+    all-reduced both ways), as the step's mean over ranks needs."""
     t, e = logits.shape
     probs = torch.softmax(logits.float(), dim=-1)
 
-    def one_route(mask_prev: torch.Tensor, offset: torch.Tensor):
+    def choose(mask_prev: torch.Tensor) -> torch.Tensor:
         idx = torch.where(mask_prev, float("-inf"), probs).argmax(-1)
-        onehot = F.one_hot(idx, e).float()
+        return F.one_hot(idx, e).float()
+
+    def place(onehot: torch.Tensor, offset: torch.Tensor):
         # 1-based position of each token in its expert's queue, after
         # the `offset` slots that earlier routes already took.
         pos = (onehot.cumsum(0) + offset[None, :]) * onehot
         keep = (pos > 0) & (pos <= capacity)
         pos0 = (pos - 1).clamp(0, capacity - 1).long()
-        return onehot, keep, pos0
+        return keep, pos0
 
-    oh1, keep1, pos1 = one_route(torch.zeros_like(probs, dtype=torch.bool),
-                                 torch.zeros(e, device=probs.device))
-    oh2, keep2, pos2 = one_route(oh1.bool(), oh1.sum(0))
+    oh1 = choose(torch.zeros_like(probs, dtype=torch.bool))
+    oh2 = choose(oh1.bool())
+    before1, total1 = _counts_before_and_total(oh1.sum(0), token_axes)
+    before2, _ = _counts_before_and_total(oh2.sum(0), token_axes)
+    keep1, pos1 = place(oh1, before1)
+    keep2, pos2 = place(oh2, total1 + before2)
 
     g1 = (probs * oh1).sum(-1)
     g2 = (probs * oh2).sum(-1)
@@ -63,7 +97,13 @@ def top2_gating(logits: torch.Tensor, capacity: int
                + slots(oh2, keep2, pos2) * g2[:, None, None])
     dispatch = combine > 0
     # load-balancing aux loss (GShard eq. 4)
-    aux = (oh1.mean(0) * probs.mean(0)).sum() * (e ** 2) / e
+    if not token_axes:
+        aux = (oh1.mean(0) * probs.mean(0)).sum() * (e ** 2) / e
+    else:
+        n = t * ops.axis_size(token_axes)
+        p_sum = ops.grad_allreduce(ops.allreduce(probs.sum(0), token_axes),
+                                   token_axes)
+        aux = (total1 / n * (p_sum / n)).sum() * (e ** 2) / e
     return dispatch, combine, aux
 
 
@@ -82,7 +122,7 @@ def moe_layer(x: torch.Tensor, gate_w: torch.Tensor,
     JAX."""
     t, d = x.shape
     e = gate_w.shape[-1]
-    logits = x.float() @ gate_w.float()
+    logits = _router_logits(x, gate_w)
     capacity = max(1, int(capacity_factor * t * 2 / e))
     if axis_name is not None:
         n = ops.axis_size(axis_name)
@@ -110,6 +150,62 @@ def moe_layer(x: torch.Tensor, gate_w: torch.Tensor,
                          concat_axis=0)
     y = torch.einsum("ecd,tec->td", got.reshape(e, capacity, d), combine)
     return y.to(x.dtype), ops.allreduce_mean(aux, axis_name)
+
+
+def moe_layer_split(x: torch.Tensor, gate_w: torch.Tensor,
+                    expert_w1: torch.Tensor, expert_w2: torch.Tensor,
+                    capacity_factor: float = 1.25, *,
+                    tp: Optional[str] = None, ep: Optional[str] = None,
+                    token_axes: Sequence[str] = ()
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Top-2 MoE FFN of the train step on a mesh (axis names bound by
+    ``ops.bind``): ``moe_layer`` of the whole batch, split.
+
+    x [tokens, d] is this rank's block of the batch split over
+    ``token_axes`` (replicated over ``tp`` and ``ep``); gate_w [d, E]
+    whole; expert_w1 [E / ep, d, f / tp] and expert_w2 [E / ep, f / tp,
+    d] this rank's blocks. Every rank routes its tokens to all E experts
+    (``top2_gating(token_axes=)``), takes its experts' buffers and runs
+    its block of their MLPs; the outputs are summed over ``tp`` and
+    gathered over ``ep`` before the combine (``_combine``), so the gating
+    weights meet whole outputs and the router's gradient is whole on
+    every rank. The "f" (identity forward, gradient summed backward) sits
+    on the experts' input only: the router's share of x's gradient is
+    already the same on every rank. A rank's [E, C, d] buffers are the
+    whole batch's capacity C, its own tokens' slots filled (the other
+    ranks' zero, and zero through the experts). Returns (y [tokens, d]
+    in x's dtype, aux)."""
+    t, d = x.shape
+    e = gate_w.shape[-1]
+    n_tok = ops.axis_size(tuple(token_axes)) if token_axes else 1
+    capacity = max(1, int(capacity_factor * t * n_tok * 2 / e))
+    logits = _router_logits(x, gate_w)
+    dispatch, combine, aux = top2_gating(logits, capacity,
+                                         tuple(token_axes) or None)
+    xe = torch.einsum("td,tec->ecd", x.float(), dispatch.float())
+    if ep is not None:
+        xe = ops.take_block(xe, ep, 0)
+    if tp is not None:
+        xe = ops.grad_allreduce(xe, tp)
+    ye = _experts(xe, expert_w1, expert_w2)
+    return _combine(ye, combine, tp, ep).to(x.dtype), aux
+
+
+def _router_logits(x: torch.Tensor, gate_w: torch.Tensor) -> torch.Tensor:
+    """The router's f32 logits [tokens, E]."""
+    return x.float() @ gate_w.float()
+
+
+def _combine(ye: torch.Tensor, combine: torch.Tensor, tp: Optional[str],
+             ep: Optional[str]) -> torch.Tensor:
+    """This rank's experts' outputs [E / ep, C, d] (partial over ``tp``)
+    made whole, summed over ``tp`` and gathered over ``ep``, then
+    weighted by ``combine`` [tokens, E, C] into [tokens, d]."""
+    if tp is not None:
+        ye = ops.allreduce(ye, tp)
+    if ep is not None:
+        ye = ops.allgather_invariant(ye, ep, 0)
+    return torch.einsum("ecd,tec->td", ye, combine)
 
 
 def _experts(xe: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor

@@ -415,6 +415,30 @@ class _AllToAll(torch.autograd.Function):
         return _all_to_all(g, *ctx.args), None, None, None
 
 
+class _TakeBlock(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, dim, index, size):
+        ctx.group, ctx.dim = group, dim
+        width = x.shape[dim] // size
+        return x.narrow(dim, index * width, width)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_gather(g, ctx.group, ctx.dim), None, None, None, None
+
+
+class _GatherInvariant(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, dim, index):
+        ctx.dim, ctx.index, ctx.width = dim, index, x.shape[dim]
+        return _all_gather(x, group, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (g.narrow(ctx.dim, ctx.index * ctx.width, ctx.width),
+                None, None, None)
+
+
 class _Permute(torch.autograd.Function):
     """A hop ``_permute_start`` issued, waited for (``wait``) in the
     forward; ``xs`` are what it sent, the last an empty anchor that
@@ -453,6 +477,28 @@ def grad_allreduce(x, axis_name: AxisName):
     replicated value entering per-rank products (Megatron's "f"; the
     transpose of JAX's implicit ``pvary``)."""
     return _GradPsum.apply(x, _group(axis_name)[0])
+
+
+def take_block(x, axis_name: AxisName, axis: int = 0):
+    """This rank's block along ``axis`` of a value that is the same on
+    every rank of the axis (a dynamic slice at ``axis_index``); backward
+    the ranks' gradient blocks are all-gathered, so the value's gradient
+    is whole on every rank (the "f" of a split whose ranks each use one
+    block)."""
+    group, (index, size) = _group(axis_name)
+    if x.shape[axis] % size:
+        raise ValueError(f"take_block: dim {axis} of {tuple(x.shape)} does "
+                         f"not split over {size} ranks")
+    return _TakeBlock.apply(x, group, axis, index, size)
+
+
+def allgather_invariant(x, axis_name: AxisName, axis: int = 0):
+    """Every rank's block along ``axis``, for a result that every rank
+    then uses alike (``lax.all_gather_invariant``): its cotangent is the
+    same on every rank, so backward each rank keeps its own block of it,
+    where ``allgather``'s reduce-scatter would count it once a rank."""
+    group, (index, _) = _group(axis_name)
+    return _GatherInvariant.apply(x, group, axis, index)
 
 
 def allgather(x, axis_name: AxisName = "sp", axis: int = 0,

@@ -899,7 +899,28 @@ class TestParallelPhase:
                      "grad_errs": [1e-2], "loss": 1.0, "ref_loss": 1.0}
                     for _ in range(cs.PAR_RANKS)]
 
+        def family(path):
+            fam, _, b, s = cs.PAR_FAMILIES[path]
+            cfg = cs.family_config(fam)
+            traffic = {op: {"bytes": n * cs.PAR_STEPS} for op, n in
+                       cs.family_bytes(path, cfg, b, s).items()}
+            return [{"pid": 20 + r, "losses": [6.0, 5.5, 5.0],
+                     "f32_losses": [6.0, 5.6],
+                     "launches": cs.parallel_expected_launches(path),
+                     "traffic": traffic,
+                     "blocks": cs.family_blocks(path, cfg),
+                     **({"ref_losses": [6.0, 5.5, 5.2],
+                         "ref_f32_losses": [6.00001, 5.6],
+                         "param_errs": [5e-3], "param_move_errs": [0.1],
+                         "grad_errs": [2e-4],
+                         "f32_route_flip_share": 0.0,
+                         "grad_control_errs": {
+                             c: 0.9 for c in cs.PAR_FAMILY_CONTROLS[path]}}
+                        if r == 0 else {})}
+                    for r in range(cs.PAR_RANKS)]
+
         return {
+            **{path: family(path) for path in cs.PAR_FAMILIES},
             "tp": train("tp", {"all_reduce": {"bytes": tp_bytes}}),
             "fsdp": train("fsdp", {op: {"bytes": n}
                                    for op, n in fsdp.items()}),
@@ -958,6 +979,113 @@ class TestParallelPhase:
         checks = cs.parallel_checks(rows, [6.0, 5.5, 5.0], 1)
         assert [k for k, ok in checks.items() if not ok] == [failed]
 
+    @pytest.mark.parametrize("path,key,value,failed", [
+        ("llama_tp", "launches", {"flash_fwd": 47, "flash_bwd_dq": 48,
+                                  "flash_bwd_dkv": 48}, "llama_tp_launches"),
+        ("vit_tp", "f32_losses", [6.0, 5.61], "vit_tp_losses"),
+        ("vit_tp", "losses", [6.0, float("nan"), 5.0], "vit_tp_losses"),
+        ("moe_tp", "grad_errs", [2e-4, 2e-3], "moe_tp_grads"),
+        ("moe_ep", "param_move_errs", [0.3], "moe_ep_params"),
+        ("moe_tp", "f32_route_flip_share", 2e-3, "moe_tp_routes"),
+        # a planted fault the band would let through, and one not read
+        ("moe_tp", "grad_control_errs", {"doubled": 1.0,
+                                         "f_sums_dropped": 1.0,
+                                         "sum_after_combine": 5e-4},
+         "moe_tp_grad_controls_rejected"),
+        ("llama_tp", "grad_control_errs", {"doubled": 1.0,
+                                           "f_sums_dropped": 1.0},
+         "llama_tp_grad_controls_rejected"),
+        ("vit_tp", "traffic", {"all_reduce": {"bytes": 1}},
+         "vit_tp_bytes"),
+        # an op the reckoning does not have (llama's shared-kv gather)
+        ("llama_tp", "traffic", "plus_all_gather", "llama_tp_bytes"),
+        ("moe_ep", "blocks", {"expert_w1": [8, 512, 1024]},
+         "moe_ep_blocks"),
+        ("vit_tp", "pid", 1, "vit_tp_other_processes"),
+    ])
+    def test_family_checks_reject(self, path, key, value, failed):
+        rows = self._rows()
+        rows[path] = [dict(r) for r in rows[path]]
+        if value == "plus_all_gather":
+            value = {**rows[path][0]["traffic"],
+                     "all_gather": {"bytes": 64}}
+        if key in ("losses", "f32_losses"):
+            for r in rows[path]:
+                r[key] = value
+        rows[path][0 if key in ("grad_errs", "param_move_errs",
+                                "f32_route_flip_share",
+                                "grad_control_errs") else -1][key] = value
+        checks = cs.parallel_checks(rows, [6.0, 5.5, 5.0], 1)
+        assert [k for k, ok in checks.items() if not ok] == [failed]
+
+    def test_family_launch_expectations(self):
+        # Every layer's attention on each rank, 3 steps: llama's
+        # tpu_bench without remat (16 layers), ViT-B/16 with (12), the
+        # MoE decoder with (4).
+        assert cs.parallel_expected_launches("llama_tp") == {
+            "flash_fwd": 48, "flash_bwd_dq": 48, "flash_bwd_dkv": 48}
+        assert cs.parallel_expected_launches("vit_tp") == {
+            "flash_fwd": 72, "flash_bwd_dq": 36, "flash_bwd_dkv": 36}
+        for path in ("moe_tp", "moe_ep"):
+            assert cs.parallel_expected_launches(path) == {
+                "flash_fwd": 24, "flash_bwd_dq": 12, "flash_bwd_dkv": 12}
+
+    def test_family_bytes_at_full_width(self):
+        # llama tpu_bench at B=4, S=2048 (no remat): 4 [b, s, d] bf16
+        # sums a layer, the embedding's and the final "f", and the
+        # loss's f32 max and [2, rows] sums.
+        act = 4 * 2048 * 1024 * 2
+        assert act == 16_777_216
+        assert cs.family_bytes("llama_tp", cs.family_config("llama"), 4,
+                               2048) == {"all_reduce": (4 * 16 + 2) * act
+                                         + 3 * 4 * 2048 * 4}
+        # ViT-B/16 at B=32 (remat): 5 [b, 197, d] sums a layer and the
+        # patch projection's [b, 196, d].
+        assert cs.family_bytes("vit_tp", cs.family_config("vit"), 32,
+                               None) == {"all_reduce": 60 * 9_682_944
+                                         + 32 * 196 * 768 * 2}
+        # MoE at B=8, S=1024: capacity 2560, [8, 2560, 512] f32 buffers.
+        experts = 8 * 2560 * 512 * 4
+        assert cs.family_bytes("moe_ep", cs.family_config("moe"), 8,
+                               1024) == {"all_gather": 3 * 4 * experts // 2}
+
+    # The families' tiny configs (the CPU test sizes of the JAX package).
+    TINY = {"llama": dict(vocab_size=512, d_model=64, n_heads=4,
+                          n_kv_heads=2, n_layers=2, d_ff=96,
+                          max_seq_len=128),
+            "vit": dict(image_size=32, patch_size=8, d_model=64, n_heads=4,
+                        n_layers=2, d_ff=128, num_classes=10),
+            "moe": dict(vocab_size=256, d_model=64, n_heads=4, n_layers=2,
+                        n_experts=4, d_ff=96, max_seq_len=64)}
+
+    @pytest.mark.parametrize("path", list(cs.PAR_FAMILIES))
+    def test_family_path_on_the_cpu(self, pool, path, tmp_path):
+        """A family path at a tiny width on 2 CPU ranks: the bytes each
+        rank hands each collective in the bf16 steps equal the
+        reckoning, the blocks the reckoned shapes, the f32 steps agree
+        with the unsplit ones in the f32 bands and every planted fault
+        leaves them, and every check but the launches (no kernel runs
+        on the CPU) passes."""
+        family = cs.PAR_FAMILIES[path][0]
+        batch = (4, None) if family == "vit" else (4, 32)
+        ref_path = str(tmp_path / "ref.pt")
+        cs.par_family_reference(path, ref_path, self.TINY[family], batch,
+                                device="cpu")
+        import torch_parallel_ranks as ranks
+
+        rows = pool.run(ranks.chip_smoke_call, "par_family_rank", path,
+                        ref_path, self.TINY[family], batch, "cpu")
+        cfg = cs.family_config(family, **self.TINY[family])
+        want = cs.family_bytes(path, cfg, *batch)
+        for rank in rows:
+            assert {op: r["bytes"] for op, r in rank["traffic"].items()} \
+                == {op: n * cs.PAR_STEPS for op, n in want.items()}
+        checks = cs.family_checks(path, rows, os.getpid(), cfg, *batch)
+        assert [k for k, ok in checks.items() if not ok] == \
+            [f"{path}_launches"]
+        assert rows[0]["grad_control_errs"].keys() == \
+            cs.PAR_FAMILY_CONTROLS[path]
+
     def test_contiguous_wqkv_order(self):
         # 2 heads of 1 column each for q, k and v; tp=2: rank r holds
         # column r of each, so the blocks side by side read q0 k0 v0 q1
@@ -965,6 +1093,9 @@ class TestParallelPhase:
         w = torch.arange(6.0).reshape(1, 6)   # [q0 q1 | k0 k1 | v0 v1]
         assert cs.contiguous_wqkv(w, 2).tolist() == [[0, 2, 4, 1, 3, 5]]
         assert torch.equal(cs.contiguous_wqkv(w, 1), w)
+        # llama's wkv: 2 kv heads of 1 column each for k and v
+        w = torch.arange(4.0).reshape(1, 4)   # [k0 k1 | v0 v1]
+        assert cs.contiguous_wqkv(w, 2, 2).tolist() == [[0, 2, 1, 3]]
 
     def test_first_grads_optimizer_keeps_the_first_step(self):
         store = []
@@ -1945,6 +2076,6 @@ class TestLibrariesPhase:
         (line,) = [x for x in capsys.readouterr().out.splitlines()
                    if x.startswith('{"phase": "libraries"')]
         m = json.loads(line)
-        assert m["trial_processes"] == 4
+        assert m["trial_processes"] == 3
         assert m["job"]["entrypoint_cuda_available"] == "False"
-        assert [t["steps"][0] for t in m["trials"]] == [1, 5, 1, 1]
+        assert [t["steps"][0] for t in m["trials"]] == [1, 5, 1]

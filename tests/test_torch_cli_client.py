@@ -48,6 +48,12 @@ def clusters():
         ray_tpu.shutdown()
     for package in PACKAGES:
         _pkg(package, "util.metrics").clear_registry()
+        # The head's per-message ingest counts are module state that
+        # outlives a cluster: an earlier test's daemon traffic in this
+        # process would expose a metric family in one package only.
+        telemetry = _pkg(package, "_private.telemetry")
+        with telemetry._msg_counts_lock:
+            telemetry._msg_counts.clear()
     ray_tpu.init(num_cpus=2, num_tpus=1)
     try:
         ray_tpu_torch.init(num_cpus=2, num_gpus=1)

@@ -337,10 +337,6 @@ class TestTensorParallelGPT:
         msg = run(2, ranks.train_step_raises, dict(dp=1, **axes), "gpt")
         assert msg is not None and "ROADMAP.md" in msg, msg
 
-    def test_other_families_raise_for_tp(self):
-        msg = run(2, ranks.train_step_raises, {"dp": 1, "tp": 2}, "llama")
-        assert msg is not None and "ROADMAP.md" in msg, msg
-
 
 # ---------------------------------------------------------------------------
 # sequence parallelism

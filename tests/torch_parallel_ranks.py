@@ -338,20 +338,24 @@ def wqkv_round_trip(d, tp):
                                                    tree_leaves(params))))
 
 
-def train_step_raises(mesh_fields, family):
-    """The message make_*_train_step raises for a mesh, or None."""
-    from ray_tpu_torch.models import (LlamaConfig, make_llama_train_step,
-                                      make_train_step)
+def train_step_raises(mesh_fields, family, rules="tp"):
+    """The message make_*_train_step raises for a mesh and a rule table
+    (``"tp"``, or ``"vocab_replicated"``: tp_rules with the vocab left
+    unsplit, against Megatron's layout), or None."""
+    from ray_tpu_torch.models import make_train_step
 
     mesh = make_mesh(MeshConfig(**mesh_fields))
+    table = tp_rules()
+    if rules == "vocab_replicated":
+        table = table.with_overrides([("vocab", None)])
     try:
-        if family == "llama":
-            make_llama_train_step(dataclasses.replace(
-                LlamaConfig.tiny(), dtype=torch.float32), device="cpu",
-                mesh=mesh, rules=tp_rules())
-        else:
+        if family == "gpt":
             make_train_step(GPTConfig.tiny(), device="cpu", mesh=mesh,
-                            rules=tp_rules())
+                            rules=table)
+        else:
+            cls, make_step, _, _ = _family(family)
+            make_step(dataclasses.replace(cls.tiny(), dtype=torch.float32),
+                      device="cpu", mesh=mesh, rules=table)
     except NotImplementedError as e:
         return str(e)
     return None
@@ -421,3 +425,115 @@ def pipeline_peak_saved(n_micro, d, rows, kind):
     with torch.autograd.graph.saved_tensors_hooks(pack, lambda h: h.t):
         step(params, x, x)
     return peak[0]
+
+
+# ---------------------------------------------------------------------------
+# the llama, ViT and MoE steps on a mesh (tests/test_torch_parallel_families)
+# ---------------------------------------------------------------------------
+def _family(name):
+    """(config class, step factory, axes table, tp segments) of a family."""
+    from ray_tpu_torch.models import llama, moe, vit
+
+    return {"llama": (llama.LlamaConfig, llama.make_llama_train_step,
+                      llama.llama_param_axes, llama.TP_SEGMENTS),
+            "vit": (vit.ViTConfig, vit.make_vit_train_step,
+                    vit.vit_param_axes, vit.TP_SEGMENTS),
+            "moe": (moe.MoEConfig, moe.make_moe_train_step,
+                    moe.moe_param_axes, moe.TP_SEGMENTS)}[name]
+
+
+def _mesh_of(mesh_fields, slices=None):
+    if slices:
+        return make_multislice_mesh(MeshConfig(**mesh_fields),
+                                    num_slices=slices)
+    return make_mesh(MeshConfig(**mesh_fields))
+
+
+def family_steps(family, cfg_fields, params, batches, mesh_fields, rules,
+                 slices=None, fault=None):
+    """The port's ``family`` step on a mesh from JAX's start params, one
+    step a batch: the losses, the params and the first step's gradients
+    gathered to the JAX layout, this rank's block shapes (by key: layer
+    0's, then the top-level ones) and, for MoE, the kept routes of the
+    first step's forward in the global batch's token order."""
+    from ray_tpu_torch.models._training import batch_axes_of, gather_params
+
+    cls, make_step, param_axes, segments = _family(family)
+    cfg = cls(dtype=torch.float32, **cfg_fields)
+    mesh = _mesh_of(mesh_fields, slices)
+    rule_table = _RULES[rules]()
+    init_state, train_step = make_step(cfg, optimizer=_Recording,
+                                       device="cpu", mesh=mesh,
+                                       rules=rule_table)
+    state = init_state(params=from_jax_params(params, "cpu"))
+    import contextlib
+
+    from ray_tpu_torch.parallel import moe as pmoe
+
+    cs = _chip_smoke()
+    routes, losses = [], []
+    with (cs.planted_fault(family, fault) if fault
+          else contextlib.nullcontext()):
+        for i, (tokens, targets) in enumerate(batches):
+            # The first step's forward records its routes (the remat
+            # recompute in its backward calls the gating again, after).
+            kept = cs.record_routes(routes) if i == 0 else None
+            try:
+                state, m = train_step(state, shard_batch((tokens, targets),
+                                                         mesh))
+            finally:
+                if kept is not None:
+                    pmoe.top2_gating = kept
+            losses.append(float(m["loss"]))
+    out = {}
+    if family == "moe":
+        routes = routes[:cfg.n_layers]
+        axes = batch_axes_of(mesh)
+        if axes:
+            routes = [ops._all_gather(r, ops.axis_group(mesh, axes), 0)
+                      for r in routes]
+        out["routes"] = [r.numpy() for r in routes]
+    axes = param_axes(cfg)
+    full = gather_params(state["params"], axes, mesh, rule_table, segments)
+    grads = gather_params(
+        tree_unflatten(state["params"], state["opt_state"].first), axes,
+        mesh, rule_table, segments)
+    blocks = {k: list(v.shape)
+              for k, v in state["params"]["layers"][0].items()}
+    blocks.update({k: list(v.shape) for k, v in state["params"].items()
+                   if k != "layers"})
+    out.update({"losses": losses, "params": _tree_np(full),
+                "grads": _tree_np(grads), "blocks": blocks})
+    return out
+
+
+def resnet_placed_blocks(cfg_fields, params, mesh_fields, rules):
+    """This rank's block of every ResNet param after ``place_params``,
+    in tree order."""
+    from ray_tpu_torch.models import resnet
+    from ray_tpu_torch.models._training import place_params
+
+    cfg = resnet.ResNetConfig(dtype=torch.float32, **cfg_fields)
+    mesh = _mesh_of(mesh_fields)
+    placed = place_params(from_jax_params(params, "cpu"),
+                          resnet.resnet_param_axes(cfg), mesh,
+                          _RULES[rules]())
+    return [_np(p) for p in tree_leaves(placed)]
+
+
+def _chip_smoke():
+    """chip_smoke.py (at the repo's root, torch only at import) by its
+    module name."""
+    import importlib
+    import os
+    import sys
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    if root not in sys.path:
+        sys.path.insert(0, root)
+    return importlib.import_module("chip_smoke")
+
+
+def chip_smoke_call(name, *args):
+    """``chip_smoke.<name>(*args)`` in a rank."""
+    return getattr(_chip_smoke(), name)(*args)
