@@ -140,7 +140,9 @@ one JSON line per phase:
  11. train         make_train_step(GPTConfig.gpt2_small()) at B=16,
                     S=1024, bf16, remat on (the preset) and off: step ms,
                     tokens/s, MFU, peak memory, the losses, and K1, K2, K3
-                    launches counted over exactly one step
+                    launches counted over exactly one step; one more step
+                    each traced, whose GEMM launches must be equal (the
+                    remat recompute runs no product)
  12. train_dp       the same GPT-2-small step (remat on, seed-0 weights
                     and batch) through the port's own Train:
                     ray_tpu_torch.init(num_cpus=4) with the GPU count
@@ -969,8 +971,9 @@ def overlap_share(copies, kernels) -> float:
 
 def trace_summary(path: str) -> dict:
     """From a Chrome trace of torch.profiler: launches of each port
-    kernel (K1-K3), the number of events that ran on the card (kernels,
-    copies, memsets), the device kernels' busy ms, and the host-to-device
+    kernel (K1-K3) and of the GEMM kernels (``_kernel_group``'s matmul
+    names), the number of events that ran on the card (kernels, copies,
+    memsets), the device kernels' busy ms, and the host-to-device
     copies' count, bytes, ms and the share of their time that overlaps
     a kernel."""
     with open(path) as f:
@@ -986,6 +989,8 @@ def trace_summary(path: str) -> dict:
     return {
         "kernels": {k: sum(k in e.get("name", "") for e in kernels)
                     for k in TRACE_KERNELS},
+        "gemm_launches": sum(_kernel_group(e.get("name", "")) == GEMM_GROUP
+                             for e in kernels),
         "device_events": sum(e.get("cat") in DEVICE_CATS for e in events),
         "kernel_busy_ms": union_length(spans(kernels)) / 1e3,
         "htod_copies": len(copies),
@@ -996,6 +1001,9 @@ def trace_summary(path: str) -> dict:
     }
 
 
+GEMM_GROUP = "matmul (cuBLAS)"
+
+
 def _kernel_group(name: str) -> str:
     low = name.lower()
     for kernel, group in (("flash_fwd", "K1 flash_fwd (this port)"),
@@ -1004,7 +1012,7 @@ def _kernel_group(name: str) -> str:
         if kernel in low:
             return group
     if any(k in low for k in ("gemm", "nvjet", "xmma", "cutlass", "cublas")):
-        return "matmul (cuBLAS)"
+        return GEMM_GROUP
     if "multi_tensor" in low or "foreach" in low or "adam" in low:
         return "optimizer (AdamW)"
     if "reduce" in low or "softmax" in low or "norm" in low:
@@ -2688,8 +2696,10 @@ def phase_train(peaks):
     """make_train_step(GPTConfig.gpt2_small()) at B=16, S=1024 on the
     card: 1 warm-up step, then 5 timed steps, each closed by fetching the
     loss; the kernels' launches counted over exactly the first timed
-    step. Remat on (the preset), then off (what bench.py's bench_tpu
-    times)."""
+    step; then one more step traced for its GEMM launches. Remat on (the
+    preset: JAX's dots_with_no_batch_dims_saveable, whose recompute runs
+    no product), then off (what bench.py's bench_tpu times); the two
+    steps' GEMM launches must be equal."""
     import torch
 
     from ray_tpu_torch.models import GPTConfig, make_train_step
@@ -2704,6 +2714,10 @@ def phase_train(peaks):
         n_params = sum(p.numel() for p in tree_leaves(state["params"]))
         batch = token_batch(cfg.vocab_size, b, s)
         losses, steps_s, launches = timed_steps(train_step, state, batch)
+        peak = torch.cuda.max_memory_allocated()
+        traced = take_trace(lambda: (float(train_step(state, batch)[1]
+                                           ["loss"]),
+                                     torch.cuda.synchronize()))
         step = statistics.median(steps_s)
         expected = expected_launches(cfg.n_layers, remat)
         row = {"config": "gpt2_small", "remat": remat, "batch": b,
@@ -2714,15 +2728,21 @@ def phase_train(peaks):
                "mfu": 6 * n_params * b * s / step / peaks["bf16"],
                "mfu_peak": f"bf16 {peaks['bf16']:.4g} FLOP/s "
                            f"({peaks['matched']})",
-               "max_memory_allocated_gb":
-                   torch.cuda.max_memory_allocated() / 1e9,
+               "max_memory_allocated_gb": peak / 1e9,
                "losses": losses, "launches": launches,
-               "expected_launches": expected}
+               "expected_launches": expected,
+               "gemm_launches": traced["gemm_launches"],
+               "traced_kernels": traced["kernels"],
+               "empty_traces": traced["empty_traces"]}
         emit("train", **row)
         check_training("train", losses, launches, expected)
         results[remat] = row
         del state, batch
         torch.cuda.empty_cache()
+    gemm = {remat: results[remat]["gemm_launches"] for remat in results}
+    check(gemm[True] == gemm[False] > 0,
+          f"train: GEMM launches a step, remat on {gemm[True]} and off "
+          f"{gemm[False]}, must be equal")
     return results
 
 
@@ -4187,23 +4207,21 @@ def parallel_expected_launches(path: str, n_layers: int = 12,
 
 
 def tp_all_reduce_bytes(cfg, b: int, s: int, chunk: int = 4096) -> int:
-    """Bytes one rank hands to all-reduce in one tensor-parallel GPT step:
-    per layer the two "g" sums of the forward, with remat the attention's
-    again in the recompute (torch's checkpoint stops recomputing once the
-    backward has what it saved, which the MLP's closing sum is not), and
-    the two "f" gradient sums of the backward, each a [b, s, d]
-    activation in the model dtype; the embedding's sum, the final norm's
-    gradient sum, and per loss chunk (gpt_loss's: the largest power of
-    two up to ``chunk`` dividing the rows) the f32 row max and the
-    stacked [2, chunk] sums."""
+    """Bytes one rank hands to all-reduce in one tensor-parallel GPT step,
+    remat on or off: per layer the two "g" sums of the forward (a remat
+    recompute takes them back from the forward, as JAX's
+    dots_with_no_batch_dims_saveable keeps them) and the two "f" gradient
+    sums of the backward, each a [b, s, d] activation in the model dtype;
+    the embedding's sum, the final norm's gradient sum, and per loss
+    chunk (gpt_loss's: the largest power of two up to ``chunk`` dividing
+    the rows) the f32 row max and the stacked [2, chunk] sums."""
     import torch
 
     act = b * s * cfg.d_model * torch.empty(0, dtype=cfg.dtype).element_size()
     rows = b * s
     while chunk > 1 and rows % chunk:
         chunk //= 2
-    per_layer = 5 if cfg.remat else 4
-    return (per_layer * cfg.n_layers + 2) * act \
+    return (4 * cfg.n_layers + 2) * act \
         + rows // chunk * 3 * chunk * 4
 
 
@@ -4675,11 +4693,12 @@ def family_batch(family: str, cfg, b: int, s, device: str = "cuda"):
 def family_bytes(path: str, cfg, b: int, s, n: int = PAR_RANKS) -> dict:
     """Bytes one rank hands each collective in one step of a family path
     on n ranks, by op (no other op runs). tp: the "g" sums of the forward
-    (again in the remat recompute, as for GPT in tp_all_reduce_bytes) and
-    the "f" gradient sums of the backward. llama: GPT's reckoning (its
-    unchunked loss moves the same f32 sums). ViT: 4 (remat: 5) [b, 197,
-    d] sums a layer and the row-parallel patch projection's [b, 196, d]
-    sum; no loss sums (the class head is replicated). MoE tp: attention's
+    (llama's and MoE's whole-block remat recompute the attention's again;
+    GPT's and ViT's keep them, tp_all_reduce_bytes) and the "f" gradient
+    sums of the backward. llama: GPT's reckoning (its unchunked loss
+    moves the same f32 sums). ViT: 4 [b, 197, d] sums a layer, remat on
+    or off, and the row-parallel patch projection's [b, 196, d] sum; no
+    loss sums (the class head is replicated). MoE tp: attention's
     2 (3) [b, s, d] sums a layer and 2 (3) of the experts' f32 [E, C, d]
     buffers (the outputs' sum, the inputs' "f"), the embedding's and the
     final "f"'s [b, s, d] and the loss's f32 sums. MoE ep: 2 (3) f32
@@ -4691,10 +4710,11 @@ def family_bytes(path: str, cfg, b: int, s, n: int = PAR_RANKS) -> dict:
     elt = torch.empty(0, dtype=cfg.dtype).element_size()
     again = 1 if cfg.remat else 0
     if family == "llama":
-        return {"all_reduce": tp_all_reduce_bytes(cfg, b, s)}
+        return {"all_reduce": tp_all_reduce_bytes(cfg, b, s) + again
+                * cfg.n_layers * b * s * cfg.d_model * elt}
     if family == "vit":
         seq = cfg.num_patches + 1
-        return {"all_reduce": (4 + again) * cfg.n_layers * b * seq
+        return {"all_reduce": 4 * cfg.n_layers * b * seq
                 * cfg.d_model * elt + b * cfg.num_patches * cfg.d_model * elt}
     tokens = b * s
     capacity = max(1, int(cfg.capacity_factor * tokens * 2 / cfg.n_experts))

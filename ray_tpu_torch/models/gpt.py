@@ -8,8 +8,9 @@ model dtype, norms and softmax in f32, attention through
 
 ``gpt_loss`` is the chunked next-token cross entropy and
 ``make_train_step`` the AdamW train step over it (``models/_training.py``).
-``remat`` checkpoints each block: its activations are recomputed in the
-backward instead of kept.
+``remat`` checkpoints each block under JAX's policy,
+``parallel.ops.dots_with_no_batch_dims_saveable``: the block's products
+are kept, the rest of its activations recomputed in the backward.
 
 Tensor parallelism (``tp_axis``, a bound mesh axis; what XLA makes of
 ``tp_rules`` in the JAX package) is Megatron's: ``wqkv`` and ``w1`` are
@@ -35,7 +36,8 @@ from torch.utils.checkpoint import checkpoint
 from .._device import DeviceLike, resolve_device
 from ..ops.attention import flash_attention
 from ..ops.layers import rms_norm, rope
-from ..parallel.ops import allgather, allreduce, grad_allreduce, remat_context
+from ..parallel.ops import (allgather, dots_with_no_batch_dims_saveable,
+                            grad_allreduce, saveable_matmul)
 from ._init import normal
 from ._megatron import embed_tokens, log_likelihood_sum, vocab_offset
 from ._training import (gather_params, make_train_step_for, place_params,
@@ -154,24 +156,19 @@ def _block(x: torch.Tensor, layer: Dict, cfg: GPTConfig,
         y = grad_allreduce(y, tp)
     width = layer["wqkv"].shape[-1] // 3
     h = width // hd
-    q, k, v = (y @ layer["wqkv"]).split(width, dim=-1)
+    q, k, v = saveable_matmul(y, layer["wqkv"]).split(width, dim=-1)
     q = rope(q.reshape(b, s, h, hd).transpose(1, 2))
     k = rope(k.reshape(b, s, h, hd).transpose(1, 2))
     v = v.reshape(b, s, h, hd).transpose(1, 2).contiguous()
     attn = flash_attention(q, k, v, True, None)
     attn = attn.transpose(1, 2).reshape(b, s, width)
-    out = attn @ layer["wo"]
-    if tp is not None:
-        out = allreduce(out, tp)
-    x = x + out
+    x = x + saveable_matmul(attn, layer["wo"], tp)
     # MLP: jax.nn.gelu's default is the tanh form.
     y = rms_norm(x, layer["ln2"])
     if tp is not None:
         y = grad_allreduce(y, tp)
-    out = F.gelu(y @ layer["w1"], approximate="tanh") @ layer["w2"]
-    if tp is not None:
-        out = allreduce(out, tp)
-    return x + out
+    hidden = F.gelu(saveable_matmul(y, layer["w1"]), approximate="tanh")
+    return x + saveable_matmul(hidden, layer["w2"], tp)
 
 
 def _head(params: Dict) -> torch.Tensor:
@@ -193,13 +190,11 @@ def _backbone(params: Dict, tokens: torch.Tensor, cfg: GPTConfig,
     remat = cfg.remat and torch.is_grad_enabled()
     for layer in params["layers"]:
         if remat:
-            # The JAX package keeps the matmul outputs of each block
-            # (policy dots_with_no_batch_dims_saveable); torch's
-            # checkpoint keeps only the block's input and recomputes the
-            # whole block in the backward. The values are the same; that
-            # policy is not ported.
+            # JAX's policy: the block's products (and, under tp, the
+            # row-parallel sums) are kept; the backward recomputes the
+            # norms, rope, gelu and the attention from them.
             x = checkpoint(_block, x, layer, cfg, tp, use_reentrant=False,
-                           context_fn=remat_context)
+                           context_fn=dots_with_no_batch_dims_saveable)
         else:
             x = _block(x, layer, cfg, tp)
     return rms_norm(x, params["lnf"])

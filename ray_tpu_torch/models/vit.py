@@ -32,8 +32,9 @@ from torch.utils.checkpoint import checkpoint
 from .._device import DeviceLike, resolve_device
 from ..ops.attention import flash_attention
 from ..ops.layers import rms_norm
-from ..parallel.ops import (allreduce, axis_index, grad_allreduce,
-                            remat_context)
+from ..parallel.ops import (allreduce, axis_index,
+                            dots_with_no_batch_dims_saveable, grad_allreduce,
+                            saveable_matmul)
 from ._init import normal
 from ._training import make_train_step_for, split_model_axes
 from .convert import params_to
@@ -181,22 +182,18 @@ def _block(x: torch.Tensor, layer: Dict, cfg: ViTConfig,
     h = width // hd
     # q, k and v are strided views of the projection; the kernels take
     # contiguous rows.
+    qkv = saveable_matmul(y, layer["wqkv"])
     q, k, v = ((t.reshape(b, s, h, hd).transpose(1, 2).contiguous())
-               for t in (y @ layer["wqkv"]).split(width, dim=-1))
+               for t in qkv.split(width, dim=-1))
     attn = flash_attention(q, k, v, causal=False)  # bidirectional
     attn = attn.transpose(1, 2).reshape(b, s, width)
-    out = attn @ layer["wo"]
-    if tp is not None:
-        out = allreduce(out, tp)
-    x = x + out
+    x = x + saveable_matmul(attn, layer["wo"], tp)
     # jax.nn.gelu's default is the tanh form.
     y = rms_norm(x, layer["ln2"])
     if tp is not None:
         y = grad_allreduce(y, tp)
-    out = F.gelu(y @ layer["w1"], approximate="tanh") @ layer["w2"]
-    if tp is not None:
-        out = allreduce(out, tp)
-    return x + out
+    hidden = F.gelu(saveable_matmul(y, layer["w1"]), approximate="tanh")
+    return x + saveable_matmul(hidden, layer["w2"], tp)
 
 
 def _embed_patches(params: Dict, images: torch.Tensor, cfg: ViTConfig,
@@ -225,12 +222,11 @@ def vit_forward(params: Dict, images: torch.Tensor, cfg: ViTConfig,
     remat = cfg.remat and torch.is_grad_enabled()
     for layer in params["layers"]:
         if remat:
-            # JAX keeps the block's matmul outputs (policy
-            # dots_with_no_batch_dims_saveable); torch's checkpoint keeps
-            # the block's input only and recomputes the whole block in
-            # the backward. The values are the same.
+            # JAX's policy, as in models.gpt: the products (and the
+            # row-parallel sums) kept, the rest recomputed.
             x = checkpoint(_block, x, layer, cfg, tp_axis,
-                           use_reentrant=False, context_fn=remat_context)
+                           use_reentrant=False,
+                           context_fn=dots_with_no_batch_dims_saveable)
         else:
             x = _block(x, layer, cfg, tp_axis)
     x = rms_norm(x[:, 0], params["lnf"])  # CLS token

@@ -54,10 +54,12 @@ calls, the bytes this rank handed it and the transport it took.
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import math
 import threading
-from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple, Union
+from typing import (Any, Callable, Deque, Dict, List, Optional, Sequence,
+                    Tuple, Union)
 
 import torch
 import torch.distributed as dist
@@ -119,19 +121,73 @@ def bind(mesh):
         stack.pop()
 
 
+@contextlib.contextmanager
+def _rebound(stack):
+    with contextlib.ExitStack() as inner:
+        for mesh in stack:
+            inner.enter_context(bind(mesh))
+        yield
+
+
 def remat_context():
     """``context_fn`` for ``torch.utils.checkpoint``: the recompute in the
     backward sees the axis names bound as they were in the forward."""
+    return contextlib.nullcontext(), _rebound(
+        list(getattr(_BOUND, "stack", None) or []))
+
+
+# ---------------------------------------------------------------------------
+# JAX's dots_with_no_batch_dims_saveable
+# ---------------------------------------------------------------------------
+_KEPT = threading.local()
+
+
+class _Kept:
+    """The products one checkpointed region keeps: ``saveable_matmul``'s
+    outputs (a row-parallel product's after its sum, as GSPMD's residual
+    is), kept in order by the forward and handed back in that order to
+    the recompute, which then neither multiplies nor sends."""
+
+    def __init__(self):
+        self.products: Deque[torch.Tensor] = collections.deque()
+        self.replay = False
+
+    @contextlib.contextmanager
+    def active(self, replay: bool):
+        self.replay = replay
+        prev = getattr(_KEPT, "current", None)
+        _KEPT.current = self
+        try:
+            yield
+        finally:
+            _KEPT.current = prev
+
+    def keep(self, out: torch.Tensor) -> None:
+        self.products.append(out.detach())
+
+    def take(self) -> torch.Tensor:
+        return self.products.popleft()
+
+
+def dots_with_no_batch_dims_saveable():
+    """``context_fn`` for ``torch.utils.checkpoint`` that runs JAX's
+    ``jax.checkpoint_policies.dots_with_no_batch_dims_saveable``: the
+    forward keeps each ``saveable_matmul`` product, the recompute takes
+    them back and reruns everything else (norms, rope, gelu, adds, the
+    attention, whose ``bmm`` has batch dims as JAX's ``bhqd,bhkd`` einsum
+    has), with the axis names bound as in the forward
+    (``remat_context``). Nothing is intercepted op by op: on the card a
+    dispatch mode over every op of the block (torch's selective
+    checkpoint) cost more host time than the products saved."""
+    kept = _Kept()
     stack = list(getattr(_BOUND, "stack", None) or [])
 
     @contextlib.contextmanager
-    def rebound():
-        with contextlib.ExitStack() as inner:
-            for mesh in stack:
-                inner.enter_context(bind(mesh))
+    def recompute():
+        with _rebound(stack), kept.active(replay=True):
             yield
 
-    return contextlib.nullcontext(), rebound()
+    return kept.active(replay=False), recompute()
 
 
 def bound_mesh():
@@ -371,6 +427,32 @@ class _Psum(torch.autograd.Function):
         return g, None
 
 
+class _KeptMatmul(torch.autograd.Function):
+    """``x @ w``, summed over ``group`` unless it is None. In a
+    ``dots_with_no_batch_dims_saveable`` region the forward keeps the
+    result and the recompute returns it. The backward is ``mm``'s: a
+    sum's cotangent passes unchanged."""
+
+    @staticmethod
+    def forward(ctx, x, w, group):
+        ctx.save_for_backward(x, w)
+        kept = getattr(_KEPT, "current", None)
+        if kept is not None and kept.replay:
+            return kept.take()
+        out = x @ w
+        if group is not None:
+            out = _all_reduce(out, group)
+        if kept is not None:
+            kept.keep(out)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        gw = x.reshape(-1, x.shape[-1]).mT @ g.reshape(-1, g.shape[-1])
+        return g @ w.mT, gw, None
+
+
 class _GradPsum(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, group):
@@ -461,6 +543,18 @@ class _Permute(torch.autograd.Function):
 def allreduce(x, axis_name: AxisName = "dp"):
     """Sum across an axis (``lax.psum``); the gradient passes through."""
     return _Psum.apply(x, _group(axis_name)[0])
+
+
+def saveable_matmul(x, w, axis_name: Optional[AxisName] = None):
+    """``x @ w`` for ``x`` [..., k] and ``w`` [k, n], a product with no
+    batch dims; with ``axis_name``, ``allreduce(x @ w, axis_name)`` (a
+    row-parallel product and its sum, Megatron's "g"). What a
+    ``dots_with_no_batch_dims_saveable`` region keeps: its recompute
+    issues neither the product nor the all-reduce."""
+    group = None if axis_name is None else _group(axis_name)[0]
+    if group is None and getattr(_KEPT, "current", None) is None:
+        return x @ w
+    return _KeptMatmul.apply(x, w, group)
 
 
 def allreduce_mean(x, axis_name: AxisName = "dp"):

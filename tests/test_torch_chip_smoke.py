@@ -773,6 +773,7 @@ class TestTraceSummary:
         got = cs.trace_summary(str(path))
         assert got["kernels"] == {"flash_fwd": 2, "flash_bwd_dq": 1,
                                   "flash_bwd_dkv": 1}
+        assert got["gemm_launches"] == 1
         assert got["htod_copies"] == 1 and got["htod_bytes"] == 1000
         assert got["htod_ms"] == pytest.approx(0.02)
         assert got["htod_overlap_share"] == pytest.approx(0.5)
@@ -842,9 +843,10 @@ class TestParallelPhase:
         assert traffic["all_reduce"]["bytes"] == \
             2 * cs.tp_all_reduce_bytes(cfg, 4, 48)
         # 192 rows: the loss's chunk is 64 (a power of two dividing them);
-        # with remat the attention's sum runs again in the recompute.
+        # the remat recompute takes the forward's sums back and sends
+        # nothing.
         assert cs.tp_all_reduce_bytes(cfg, 4, 48) == \
-            ((5 if remat else 4) * 2 + 2) * 4 * 48 * 64 * 4 + 3 * 3 * 64 * 4
+            (4 * 2 + 2) * 4 * 48 * 64 * 4 + 3 * 3 * 64 * 4
 
     def test_fsdp_bytes_reckoning_matches_an_fsdp_step(self, pool):
         import torch_parallel_ranks as ranks
@@ -1039,10 +1041,10 @@ class TestParallelPhase:
         assert cs.family_bytes("llama_tp", cs.family_config("llama"), 4,
                                2048) == {"all_reduce": (4 * 16 + 2) * act
                                          + 3 * 4 * 2048 * 4}
-        # ViT-B/16 at B=32 (remat): 5 [b, 197, d] sums a layer and the
-        # patch projection's [b, 196, d].
+        # ViT-B/16 at B=32 (remat, whose recompute sends nothing): 4
+        # [b, 197, d] sums a layer and the patch projection's [b, 196, d].
         assert cs.family_bytes("vit_tp", cs.family_config("vit"), 32,
-                               None) == {"all_reduce": 60 * 9_682_944
+                               None) == {"all_reduce": 48 * 9_682_944
                                          + 32 * 196 * 768 * 2}
         # MoE at B=8, S=1024: capacity 2560, [8, 2560, 512] f32 buffers.
         experts = 8 * 2560 * 512 * 4

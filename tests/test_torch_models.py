@@ -10,6 +10,7 @@ card. Each test states its tolerance.
 """
 
 import dataclasses
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -29,6 +30,9 @@ from ray_tpu_torch.models import moe as tmoe
 from ray_tpu_torch.models import resnet as tresnet
 from ray_tpu_torch.models import vit as tvit
 from ray_tpu_torch.parallel import moe as tpmoe
+from ray_tpu_torch.parallel.ops import remat_context
+from test_torch_train import (backward_products, jax_block_residuals,
+                              port_block_kept)
 
 _DTYPES = {"float32": (jnp.float32, torch.float32),
            "bfloat16": (jnp.bfloat16, torch.bfloat16)}
@@ -255,6 +259,45 @@ class TestViT:
         del tgrads["cls"], grads["cls"]
         errs = _norm_errs(tgrads, grads)
         assert max(errs) <= 2e-5, errs
+
+    @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+    def test_remat_kept_products_are_jax_residuals(self, monkeypatch, dtype):
+        jcfg, tcfg, jp, tp = self._setup(dtype, seed=6)
+        x = np.random.default_rng(6).standard_normal(
+            (2, tcfg.num_patches + 1, jcfg.d_model)).astype(np.float32)
+        want = jax_block_residuals(functools.partial(jvit._block, cfg=jcfg),
+                                   jnp.asarray(x, jcfg.dtype),
+                                   jp["layers"][0])
+        # qkv [2,17,192], wo's product [2,17,64], w1's [2,17,128].
+        assert [n for n, _ in want] == [2176, 4352, 6528]
+        got, runs = port_block_kept(
+            monkeypatch, functools.partial(tvit._block, cfg=tcfg),
+            torch.from_numpy(x).to(tcfg.dtype), tp["layers"][0])
+        # Besides JAX's, the port keeps w2's product [2,17,64] (dead in
+        # the backward, which JAX's dead-code pass sees and the port's
+        # forward cannot).
+        assert got == sorted(want + [(2 * 17 * 64, dtype)])
+        assert runs == 2
+
+    def test_remat_backward_runs_no_extra_product(self, monkeypatch):
+        jcfg, _, jp, _ = self._setup(seed=7)
+        labels = np.random.default_rng(7).integers(0, jcfg.num_classes, 4)
+        batch = tuple(map(torch.from_numpy,
+                          (_images(7, 4, jcfg.image_size), labels)))
+        counts = {}
+        for remat, context in (("on", None), ("off", None),
+                               ("whole", remat_context)):
+            if context is not None:
+                monkeypatch.setattr(tvit, "dots_with_no_batch_dims_saveable",
+                                    context)
+            _, tcfg = _configs(jvit.ViTConfig, tvit.ViTConfig,
+                               remat=remat != "off")
+            counts[remat] = backward_products(
+                tvit.vit_loss(_with_grads(_to_torch(jp)), batch, tcfg))
+        # 8 products a block's backward; the patch projection's weight
+        # and the class head's 2 (the images need no gradient).
+        assert counts["on"] == counts["off"] == 8 * tcfg.n_layers + 3
+        assert counts["whole"] == counts["off"] + 3 * tcfg.n_layers
 
     def test_classifier_argmax_matches_jax(self):
         jcfg, tcfg, jp, tp = self._setup(seed=2)

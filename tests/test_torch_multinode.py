@@ -30,11 +30,28 @@ PACKAGES = ("ray_tpu", "ray_tpu_torch")
 TIMEOUT = 60
 
 
+# The module's shared clusters (fixture ``clusters``) while they are up.
+_SHARED = {}
+
+
+def _close_shared():
+    """Shut the shared clusters down. ``Cluster(initialize_head=True)``
+    joins a head already up in this process (``init`` with
+    ``ignore_reinit_error``) and its ``shutdown`` stops that head: a case
+    that builds clusters of its own would otherwise run on the shared
+    head, beside its daemons A and B, and leave them orphaned."""
+    while _SHARED:
+        _SHARED.popitem()[1].shutdown()
+
+
 class Side:
     """One package's cluster: its API module, its Cluster and the nodes
-    in add_node order (the head first)."""
+    in add_node order (the head first). A cluster of its own (not
+    ``shared``) starts after the shared clusters are shut down."""
 
-    def __init__(self, package, head_args, nodes):
+    def __init__(self, package, head_args, nodes, shared=False):
+        if not shared:
+            _close_shared()
         self.package = package
         self.ray = importlib.import_module(package)
         self.state = importlib.import_module(package + "._private.state")
@@ -87,16 +104,15 @@ def assert_same(results):
 
 @pytest.fixture(scope="module")
 def clusters():
-    sides = {}
     try:
         for pkg in PACKAGES:
-            sides[pkg] = Side(pkg, _head_args(pkg), [
+            _SHARED[pkg] = Side(pkg, _head_args(pkg), [
                 {"num_cpus": 2, "resources": {"A": 4}, "daemon": True},
-                {"num_cpus": 2, "resources": {"B": 4}, "daemon": True}])
-        yield sides
+                {"num_cpus": 2, "resources": {"B": 4}, "daemon": True}],
+                shared=True)
+        yield dict(_SHARED)
     finally:
-        for side in sides.values():
-            side.shutdown()
+        _close_shared()
 
 
 def run_case(clusters, case):

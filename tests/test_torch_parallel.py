@@ -309,6 +309,32 @@ class TestTensorParallelGPT:
                                  "w2": [128 // tp, 64],
                                  "embed": [512 // tp, 64]}
 
+    @pytest.mark.parametrize("family", ["gpt", "vit"])
+    def test_remat_recompute_sends_nothing(self, family):
+        """tp=2 with remat (JAX's dots_with_no_batch_dims_saveable): the
+        recompute takes the forward's row-parallel sums back, so a step
+        hands all-reduce what the step without remat does, and ends on
+        the same params."""
+        rng = np.random.default_rng(40)
+        if family == "gpt":
+            fields = {"vocab_size": 512, "d_model": 64, "n_heads": 4,
+                      "n_layers": 2, "d_ff": 128, "max_seq_len": 128}
+            toks = rng.integers(0, 512, (4, 33))
+            batch = (toks[:, :-1], toks[:, 1:])
+        else:
+            fields = {"image_size": 32, "patch_size": 8, "d_model": 64,
+                      "n_heads": 4, "n_layers": 2, "d_ff": 128,
+                      "num_classes": 10}
+            batch = (rng.standard_normal((4, 32, 32, 3)).astype(np.float32),
+                     rng.integers(0, 10, 4))
+        out = pool(2).run(ranks.remat_traffic, family, fields,
+                          {"dp": 1, "tp": 2}, batch)
+        for rank in out:
+            (on, on_params), (off, off_params) = rank[True], rank[False]
+            assert set(on) == {"all_reduce"}
+            assert on == off
+            _assert_same(on_params, off_params)
+
     def test_wqkv_blocks_are_head_aligned_and_gather_inverts(self):
         # wqkv's columns are [q | k | v], 8 each (4 heads of 2): rank r
         # of tp=2 holds columns r*4..r*4+3 of each of the three.

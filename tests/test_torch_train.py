@@ -3,6 +3,9 @@
 ``gpt_loss``, its gradients (remat on and off) and ``make_train_step``
 (AdamW) on weights drawn once by ``ray_tpu`` and carried over with
 ``from_jax_params``; token batches come from numpy with a fixed seed.
+The remat policy (JAX's ``dots_with_no_batch_dims_saveable``) is held
+to the residuals JAX keeps for one block and to the products the
+backward runs.
 Everything runs on the CPU, where the port's attention and its gradient
 are autograd through the plain version; ``chip_smoke.py`` holds the
 CUDA kernels (K1, K2, K3) against those plain versions on the card. Each
@@ -10,21 +13,27 @@ test states its tolerance.
 """
 
 import dataclasses
+import functools
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from jax._src.ad_checkpoint import saved_residuals
+from torch.utils.checkpoint import checkpoint
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from ray_tpu.models import GPTConfig as JConfig
 from ray_tpu.models import gpt_init as j_init
+from ray_tpu.models.gpt import _block as j_block
 from ray_tpu.models.gpt import gpt_loss as j_loss
 from ray_tpu.models.gpt import make_train_step as j_make_train_step
 from ray_tpu.ops.attention import _kernel_ok as j_kernel_ok
 from ray_tpu_torch.models import (GPTConfig, from_jax_params, gpt_loss,
                                   make_train_step)
 from ray_tpu_torch.models import gpt as tgpt
+from ray_tpu_torch.parallel import ops
 
 _DTYPES = {"float32": (jnp.float32, torch.float32),
            "bfloat16": (jnp.bfloat16, torch.bfloat16)}
@@ -118,6 +127,105 @@ class TestGPTLoss:
         loss.backward()
         # Each checkpointed block runs again in the backward.
         assert len(calls) == 2 * tcfg.n_layers
+
+
+# ---------------------------------------------------------------------------
+# the remat policy (shared with test_torch_models' ViT cases)
+# ---------------------------------------------------------------------------
+_PRODUCTS = (torch.ops.aten.mm, torch.ops.aten.addmm)
+
+
+def jax_block_residuals(jblock, x, layer):
+    """(elements, dtype name) of each residual JAX keeps for ``jblock``
+    under dots_with_no_batch_dims_saveable (what print_saved_residuals
+    lists), the block's arguments and constants left out."""
+    f = jax.checkpoint(
+        jblock, policy=jax.checkpoint_policies.dots_with_no_batch_dims_saveable)
+    return sorted((int(np.prod(aval.shape)), str(aval.dtype))
+                  for aval, why in saved_residuals(f, x, layer)
+                  if not why.startswith(("from the argument",
+                                         "from a constant")))
+
+
+def port_block_kept(monkeypatch, tblock, x, layer):
+    """(elements, dtype name) of each product the port's policy keeps
+    over one checkpointed ``tblock`` forward and backward, and the number
+    of times the block ran."""
+    kept, runs = [], []
+    keep = ops._Kept.keep
+
+    def recording(self, out):
+        kept.append((out.numel(), str(out.dtype).removeprefix("torch.")))
+        keep(self, out)
+
+    monkeypatch.setattr(ops._Kept, "keep", recording)
+    x = x.requires_grad_(True)
+    out = checkpoint(lambda *a: runs.append(1) or tblock(*a), x, layer,
+                     use_reentrant=False,
+                     context_fn=ops.dots_with_no_batch_dims_saveable)
+    out.float().sum().backward()
+    return sorted(kept), len(runs)
+
+
+class _CountProducts(TorchDispatchMode):
+    def __init__(self):
+        super().__init__()
+        self.n = 0
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        self.n += func.overloadpacket in _PRODUCTS
+        return func(*args, **(kwargs or {}))
+
+
+def backward_products(loss) -> int:
+    """The mm/addmm calls that ``loss.backward()`` runs (a product the
+    remat policy kept runs none in the recompute)."""
+    with _CountProducts() as count:
+        loss.backward()
+    return count.n
+
+
+class TestRematPolicy:
+    @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+    def test_kept_products_are_jax_residuals(self, monkeypatch, dtype):
+        jcfg, tcfg = _configs(dtype)
+        jp = j_init(jax.random.PRNGKey(6), jcfg)
+        x = np.random.default_rng(6).standard_normal(
+            (2, 32, jcfg.d_model)).astype(np.float32)
+        jx = jnp.asarray(x, jcfg.dtype)
+        want = jax_block_residuals(functools.partial(j_block, cfg=jcfg),
+                                   jx, jp["layers"][0])
+        # qkv [2,32,192], wo's product [2,32,64], w1's [2,32,128].
+        assert [n for n, _ in want] == [4096, 8192, 12288]
+        got, runs = port_block_kept(
+            monkeypatch, functools.partial(tgpt._block, cfg=tcfg),
+            torch.from_numpy(x).to(tcfg.dtype),
+            _to_torch(jp)["layers"][0])
+        # The port also keeps w2's product [2,32,64], which JAX's
+        # dead-code pass drops: the backward needs no block output.
+        assert got == sorted(want + [(2 * 32 * 64, dtype)])
+        assert runs == 2
+
+    @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+    def test_backward_runs_no_extra_product(self, monkeypatch, dtype):
+        jcfg, _ = _configs(dtype)
+        params = _to_torch(j_init(jax.random.PRNGKey(7), jcfg))
+        batch = tuple(map(torch.from_numpy, _batch(7, 2, 16)))
+        counts = {}
+        for remat, context in (("on", None), ("off", None),
+                               ("whole", ops.remat_context)):
+            if context is not None:
+                monkeypatch.setattr(tgpt, "dots_with_no_batch_dims_saveable",
+                                    context)
+            _, tcfg = _configs(dtype, remat=remat != "off")
+            leaves = [leaf.detach().requires_grad_(True)
+                      for leaf in jax.tree.leaves(params)]
+            tree = jax.tree.unflatten(jax.tree.structure(params), leaves)
+            counts[remat] = backward_products(gpt_loss(tree, batch, tcfg))
+        # 8 products a block's backward (2 a weight), 2 for the tied head.
+        assert counts["on"] == counts["off"] == 8 * tcfg.n_layers + 2
+        # Whole-block recompute reruns the 3 products the backward reads.
+        assert counts["whole"] == counts["off"] + 3 * tcfg.n_layers
 
 
 class TestTrainStep:

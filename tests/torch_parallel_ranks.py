@@ -397,6 +397,31 @@ def step_traffic(cfg_fields, mesh_fields, rules, batch, seq, steps):
                         for p in tree_leaves(full))
 
 
+def remat_traffic(family, cfg_fields, mesh_fields, batch):
+    """One f32 GPT or ViT step on a tp mesh from seed-0 weights, remat on
+    and off: by remat, this rank's TRAFFIC and the params after the step
+    (numpy, the layout of the rank's blocks)."""
+    from ray_tpu_torch.models import vit
+
+    out = {}
+    for remat in (True, False):
+        if family == "gpt":
+            cfg = GPTConfig(dtype=torch.float32, remat=remat, **cfg_fields)
+            make = tgpt.make_train_step
+        else:
+            cfg = vit.ViTConfig(dtype=torch.float32, remat=remat,
+                                **cfg_fields)
+            make = vit.make_vit_train_step
+        mesh = make_mesh(MeshConfig(**mesh_fields))
+        init_state, train_step = make(cfg, device="cpu", mesh=mesh,
+                                      rules=tp_rules())
+        state = init_state(torch.Generator().manual_seed(0))
+        ops.TRAFFIC.reset()
+        state, _ = train_step(state, shard_batch(batch, mesh))
+        out[remat] = (ops.TRAFFIC.snapshot(), _tree_np(state["params"]))
+    return out
+
+
 def pipeline_peak_saved(n_micro, d, rows, kind):
     """The most bytes autograd held saved for backward at once over one
     GPipe or 1F1B training step (tanh stages, zeros) on every rank: a
