@@ -33,6 +33,7 @@ from typing import (
 import numpy as np
 
 from .. import api
+from ..util import tracing
 from . import block as B
 
 
@@ -67,6 +68,18 @@ class _RefBundle:
 @api.remote
 def _apply_batches(blk: B.Block, fn, batch_size, batch_format,
                    fn_args, fn_kwargs) -> B.Block:
+    if tracing.profiler._is_profiler_enabled:
+        return tracing.local_call("data.apply", _apply_fn, blk, fn,
+                                  batch_size, batch_format, fn_args,
+                                  fn_kwargs)
+    return _apply_fn(blk, fn, batch_size, batch_format, fn_args, fn_kwargs)
+
+
+def _apply_fn(blk: B.Block, fn, batch_size, batch_format, fn_args,
+              fn_kwargs) -> B.Block:
+    """``fn`` over ``blk`` in batches of ``batch_size`` rows, the outputs
+    concatenated; each call of ``fn`` the span ``data.udf`` while
+    tracing records (inside ``data.apply``)."""
     n = B.block_length(blk)
     if n == 0:
         return blk
@@ -75,8 +88,12 @@ def _apply_batches(blk: B.Block, fn, batch_size, batch_format,
     for s in range(0, n, step):
         batch = B.to_batch_format(B.block_slice(blk, s, s + step),
                                   batch_format)
-        outs.append(B.from_batch_format(
-            fn(batch, *fn_args, **fn_kwargs)))
+        if tracing.profiler._is_profiler_enabled:
+            out = tracing.local_call("data.udf", fn, batch, *fn_args,
+                                     **fn_kwargs)
+        else:
+            out = fn(batch, *fn_args, **fn_kwargs)
+        outs.append(B.from_batch_format(out))
     return B.block_concat(outs)
 
 
@@ -335,17 +352,12 @@ class _MapBatchesActorPool:
 
             def apply(self, blk, batch_size, batch_format, fn_args,
                       fn_kwargs):
-                n = B.block_length(blk)
-                if n == 0:
-                    return blk
-                step = batch_size or n
-                outs = []
-                for s in range(0, n, step):
-                    batch = B.to_batch_format(
-                        B.block_slice(blk, s, s + step), batch_format)
-                    outs.append(B.from_batch_format(
-                        self.fn(batch, *fn_args, **fn_kwargs)))
-                return B.block_concat(outs)
+                if tracing.profiler._is_profiler_enabled:
+                    return tracing.local_call(
+                        "data.apply", _apply_fn, blk, self.fn, batch_size,
+                        batch_format, fn_args, fn_kwargs)
+                return _apply_fn(blk, self.fn, batch_size, batch_format,
+                                 fn_args, fn_kwargs)
 
         import cloudpickle
         blob = cloudpickle.dumps((fn_cls, ctor_args, ctor_kwargs))

@@ -14,6 +14,7 @@ import collections
 from typing import Callable, Iterator, List, Optional, Tuple
 
 from .. import api
+from ..util import tracing
 from . import block as B
 from .context import DataContext
 
@@ -33,9 +34,17 @@ def iter_blocks(bundles: Iterator[StreamedBundle],
     for bundle in bundles:
         window.append(bundle)
         if len(window) > prefetch:
-            yield api.get(window.popleft()[0])
+            yield _get(window.popleft()[0])
     while window:
-        yield api.get(window.popleft()[0])
+        yield _get(window.popleft()[0])
+
+
+def _get(ref) -> B.Block:
+    """The block behind ``ref``; the span ``data.get`` while tracing
+    records."""
+    if tracing.profiler._is_profiler_enabled:
+        return tracing.local_call("data.get", api.get, ref)
+    return api.get(ref)
 
 
 def shuffled_blocks(blocks: Iterator[B.Block], buffer_size: int,
@@ -76,22 +85,33 @@ def batches_from_blocks(
     leftover: Optional[B.Block] = None
     for blk in blocks:
         if leftover is not None:
-            blk = B.block_concat([leftover, blk])
+            blk = _batch_step(B.block_concat, [leftover, blk])
             leftover = None
         n = B.block_length(blk)
         if batch_size is None:
             if n:
-                yield B.to_batch_format(blk, batch_format)
+                yield _batch_step(B.to_batch_format, blk, batch_format)
             continue
         pos = 0
         while n - pos >= batch_size:
-            yield B.to_batch_format(
-                B.block_slice(blk, pos, pos + batch_size), batch_format)
+            yield _batch_step(_cut, blk, pos, pos + batch_size, batch_format)
             pos += batch_size
         if pos < n:
             leftover = B.block_slice(blk, pos, n)
     if leftover is not None and B.block_length(leftover) and not drop_last:
-        yield B.to_batch_format(leftover, batch_format)
+        yield _batch_step(B.to_batch_format, leftover, batch_format)
+
+
+def _cut(blk: B.Block, start: int, end: int, batch_format: str):
+    return B.to_batch_format(B.block_slice(blk, start, end), batch_format)
+
+
+def _batch_step(fn: Callable, *args):
+    """``fn(*args)``, one step of making batches; the span ``data.batch``
+    while tracing records."""
+    if tracing.profiler._is_profiler_enabled:
+        return tracing.local_call("data.batch", fn, *args)
+    return fn(*args)
 
 
 # ---------------------------------------------------------------------------
@@ -221,12 +241,18 @@ def _device_feed(batches: Iterator, target, coord: int, parts: int,
         # torch has no read-only tensor: read-only pages are copied.
         return torch.from_numpy(a if a.flags.writeable else a.copy())
 
-    def upload(batch):
+    def stage(batch) -> dict:
+        """This rank's rows of each column on the host: pinned for a
+        card, as they are for the CPU."""
+        return {k: (pinned if cuda else host)(rows(v))
+                for k, v in batch.items()}
+
+    def upload(staged: dict):
         if not cuda:
-            return {k: host(rows(v)) for k, v in batch.items()}, None
+            return staged, None
         with torch.cuda.stream(side):
-            put = {k: pinned(rows(v)).to(target, non_blocking=True)
-                   for k, v in batch.items()}
+            put = {k: t.to(target, non_blocking=True)
+                   for k, t in staged.items()}
             done = torch.cuda.Event()
             done.record(side)
         return put, done
@@ -241,8 +267,26 @@ def _device_feed(batches: Iterator, target, coord: int, parts: int,
         return put
 
     window: collections.deque = collections.deque()
-    for batch in batches:
-        item = upload(batch)
+    batches = iter(batches)
+    while True:
+        if tracing.profiler._is_profiler_enabled:
+            # The upstream's next batch, the host copies (pinned for a
+            # card) and the uploads' enqueueing, as spans, and the bytes
+            # copied. The staged copies are let go as the untraced path
+            # lets them go, so the host allocator reuses the same blocks.
+            batch = tracing.local_call("feed.fetch", next, batches, None)
+            if batch is None:
+                break
+            staged = tracing.local_call("feed.pin", stage, batch)
+            tracing.local_count("feed.bytes", sum(
+                t.numel() * t.element_size() for t in staged.values()))
+            item = tracing.local_call("feed.upload", upload, staged)
+            del staged
+        else:
+            batch = next(batches, None)
+            if batch is None:
+                break
+            item = upload(stage(batch))
         if depth == 0:
             yield ready(item)
             continue

@@ -13,6 +13,12 @@ Three invariants keeping the debug planes honest:
    ``if <plane>.enabled`` guard, so the disabled hot path pays exactly
    one dict lookup (the perf_smoke contract). Helpers called through an
    indirect gate annotate ``# lint: ungated-instrumentation-ok <why>``.
+   The hot paths' recording helpers (``RECORDING_HELPERS``:
+   ``tracing.local_span``, ``local_call``, ``local_count``,
+   ``device_range``) record in a torch.profiler session alone: their
+   guard is ``if tracing.profiler._is_profiler_enabled``, and
+   ``tracing.enabled``, which every process of a cluster inherits, does
+   not stand for it.
 
 3. **Globally unique metric names** — a metric name is created with one
    kind in one file; the registry dedups by name at runtime, so a
@@ -30,6 +36,12 @@ from .core import LintTree, SourceFile, Violation, walk
 
 PASS = "gate-discipline"
 RULE_UNGATED = "ungated-instrumentation"
+# The hot paths' in-process recording helpers, by plane: gated on
+# ``<plane>.profiler._is_profiler_enabled``, torch's profiler flag.
+RECORDING_HELPERS = {
+    "tracing": ("local_span", "local_call", "local_count", "device_range"),
+}
+RECORDING_GATE = ("profiler", "_is_profiler_enabled")
 
 FAULT_FILE = "_private/fault.py"
 
@@ -81,29 +93,54 @@ def _implies_enabled(test: ast.AST, module: str, want_true: bool) -> bool:
     return False
 
 
-def _is_gated(sf: SourceFile, call: ast.Call, module: str) -> bool:
+def _is_gated(sf: SourceFile, call: ast.Call, module: str,
+              implies=_implies_enabled) -> bool:
     """True when an ancestor ``if``/ternary branch implies
     ``<module>.enabled`` — the SAME plane module as the call (a
     ``fault.enabled`` guard does not gate a telemetry helper), with the
-    branch (body vs else) and negation taken into account."""
+    branch (body vs else) and negation taken into account. ``implies``
+    says which flag a test implies."""
     prev: ast.AST = call
     for parent in sf.parents(call):
         if isinstance(parent, (ast.If, ast.While)):
             in_body = any(prev is s for s in parent.body)
             in_orelse = not isinstance(parent, ast.While) and any(
                 prev is s for s in parent.orelse)
-            if in_body and _implies_enabled(parent.test, module, True):
+            if in_body and implies(parent.test, module, True):
                 return True
-            if in_orelse and _implies_enabled(parent.test, module, False):
+            if in_orelse and implies(parent.test, module, False):
                 return True
         elif isinstance(parent, ast.IfExp):
             if prev is parent.body \
-                    and _implies_enabled(parent.test, module, True):
+                    and implies(parent.test, module, True):
                 return True
             if prev is parent.orelse \
-                    and _implies_enabled(parent.test, module, False):
+                    and implies(parent.test, module, False):
                 return True
         prev = parent
+    return False
+
+
+def _implies_recording(test: ast.AST, module: str, want_true: bool
+                       ) -> bool:
+    """Does this branch condition imply
+    ``<module>.profiler._is_profiler_enabled`` is truthy? Strict about
+    ``and``/``or``: ``tracing.enabled or <the flag>`` does not."""
+    if isinstance(test, ast.Attribute) and test.attr == RECORDING_GATE[1] \
+            and isinstance(test.value, ast.Attribute) \
+            and test.value.attr == RECORDING_GATE[0] \
+            and isinstance(test.value.value, ast.Name) \
+            and test.value.value.id == module:
+        return want_true
+    if isinstance(test, ast.UnaryOp) and isinstance(test.op, ast.Not):
+        return _implies_recording(test.operand, module, not want_true)
+    if isinstance(test, ast.BoolOp):
+        # The branch taken with ``a and b`` true, or ``a or b`` false,
+        # knows every operand's value; the other knows only one of them.
+        every = isinstance(test.op, ast.And) == want_true
+        hits = [_implies_recording(v, module, want_true)
+                for v in test.values]
+        return any(hits) if every else all(hits)
     return False
 
 
@@ -171,13 +208,19 @@ def run(tree: LintTree) -> List[Violation]:
             for module, helpers in module_helpers.items():
                 helper = _plane_call(node, module, helpers) \
                     if helpers else None
-                if helper and not impl_file \
-                        and not _is_gated(sf, node, module) \
+                if not helper or impl_file:
+                    continue
+                recording = helper in RECORDING_HELPERS.get(module, ())
+                implies = _implies_recording if recording \
+                    else _implies_enabled
+                if not _is_gated(sf, node, module, implies) \
                         and not sf.suppressed(RULE_UNGATED, node.lineno):
+                    guard = (f"{module}.{'.'.join(RECORDING_GATE)}"
+                             if recording else f"{module}.enabled")
                     out.append(Violation(
                         PASS, sf.relpath, node.lineno,
                         f"{module}.{helper}() outside an "
-                        f"`if {module}.enabled` guard (annotate "
+                        f"`if {guard}` guard (annotate "
                         f"`# lint: {RULE_UNGATED}-ok <why>` when gated "
                         f"indirectly)",
                         scope=sf.scope_of(node),

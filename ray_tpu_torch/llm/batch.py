@@ -15,16 +15,23 @@ The text stages have the byte tokenizer only: a Hugging Face model id
 every greedy step runs the full ``gpt_forward`` over the padded bucket,
 so each layer launches the attention kernel once per step. It alone
 imports torch, when it is built: a pool actor that hosts a text stage
-starts without it.
+starts without it. While tracing records, a call is the span
+``llm.call`` over ``llm.pad``, ``llm.decode`` (the steps' enqueueing) and
+``llm.fetch`` (the copy to the host, which waits on the card), and each
+step counts ``llm.positions_computed`` (rows x bucket) and
+``llm.positions_real`` (the positions that hold a prompt's or an
+answer's token).
 """
 
 from __future__ import annotations
 
 import json
 from dataclasses import dataclass, field
-from typing import TYPE_CHECKING, Any, Dict, List, Optional
+from typing import TYPE_CHECKING, Any, Dict, List, Optional, Tuple
 
 import numpy as np
+
+from ..util import tracing
 
 if TYPE_CHECKING:
     from .._device import DeviceLike
@@ -160,17 +167,26 @@ class GPTInferenceStage:
         self._in, self._out = input_column, output_column
 
     def _decode(self, tokens):
+        """Greedy steps from the left-padded ``tokens`` [rows, bucket],
+        whose rows hold ``self._lengths`` real tokens (set by the call):
+        the new tokens [rows, max_new], on the device."""
         import torch
 
         from ..models.gpt import gpt_forward
 
+        rows, bucket = tokens.shape
         news = []
         with torch.inference_mode():
-            for _ in range(self._max_new):
+            for step in range(self._max_new):
                 logits = gpt_forward(self._params, tokens, self._cfg)
                 nxt = logits[:, -1, :].argmax(dim=-1)
                 tokens = torch.cat([tokens[:, 1:], nxt[:, None]], dim=1)
                 news.append(nxt)
+                if tracing.profiler._is_profiler_enabled:
+                    tracing.local_count("llm.positions_computed",
+                                        rows * bucket)
+                    tracing.local_count("llm.positions_real", int(
+                        np.minimum(self._lengths + step, bucket).sum()))
             return torch.stack(news, dim=1)  # [B, max_new]
 
     @staticmethod
@@ -180,19 +196,37 @@ class GPTInferenceStage:
             b *= 2
         return b
 
-    def __call__(self, batch: Dict[str, Any]) -> Dict[str, Any]:
-        toks_list = batch[self._in]
+    def _pad(self, toks_list) -> Tuple[np.ndarray, np.ndarray]:
+        """The prompts left-padded with zeros to their bucket (the decode
+        reads the tail), and each row's real length."""
         vocab = self._cfg.vocab_size
         max_len = min(self._bucket(max(len(t) for t in toks_list)),
                       self._cfg.max_seq_len)
         padded = np.zeros((len(toks_list), max_len), np.int64)
+        lengths = np.zeros(len(toks_list), np.int64)
         for i, t in enumerate(toks_list):
             t = np.asarray(t)[-max_len:] % vocab
-            padded[i, max_len - len(t):] = t  # left-pad (decode reads tail)
+            padded[i, max_len - len(t):] = t
+            lengths[i] = len(t)
+        return padded, lengths
+
+    def __call__(self, batch: Dict[str, Any]) -> Dict[str, Any]:
         import torch
 
-        news = self._decode(torch.from_numpy(padded).to(self._device))
-        news = news.cpu().numpy().astype(np.int32)
+        toks_list = batch[self._in]
+        if tracing.profiler._is_profiler_enabled:
+            with tracing.local_span("llm.call"):
+                padded, self._lengths = tracing.local_call(
+                    "llm.pad", self._pad, toks_list)
+                news = tracing.local_call(
+                    "llm.decode", self._decode,
+                    torch.from_numpy(padded).to(self._device))
+                news = tracing.local_call("llm.fetch", news.cpu)
+        else:
+            padded, self._lengths = self._pad(toks_list)
+            news = self._decode(
+                torch.from_numpy(padded).to(self._device)).cpu()
+        news = news.numpy().astype(np.int32)
         out = dict(batch)
         out[self._out] = [news[i] for i in range(len(toks_list))]
         return out

@@ -48,6 +48,7 @@ from ..parallel.ops import (_all_gather, _all_reduce, _names,
                             _reduce_scatter, axis_coordinate, axis_group,
                             bind)
 from ..parallel.partition import PartitionSpec, named_sharding
+from ..util import tracing
 from .convert import params_to
 
 BATCH_AXES = ("dp_dcn", "dp", "fsdp")
@@ -431,27 +432,48 @@ def make_train_step_for(
         return {"params": params, "opt_state": make_optimizer(leaves),
                 "step": 0}
 
-    def train_step(state: Dict, batch):
+    def forward(state: Dict, batch):
+        """Zero the gradients, put the batch on the device, run the loss:
+        (optimizer, loss)."""
         opt = state["opt_state"]
         opt.zero_grad(set_to_none=True)
         inputs, targets = (torch.as_tensor(x, device=device) for x in batch)
         params = state["params"]
         if mesh is None:
-            loss = loss_fn(params, (inputs, targets))
+            return opt, loss_fn(params, (inputs, targets))
+        with bind(mesh):
+            used = params
+            if plan:
+                leaves = tree_leaves(params)
+                used = tree_unflatten(params, _GatherForUse.apply(
+                    plan, mesh, *leaves))
+            return opt, loss_fn(used, (inputs, targets))
+
+    def backward(state: Dict, loss: torch.Tensor) -> torch.Tensor:
+        """The gradients (reduced over the batch axes on a mesh); the
+        loss, detached (the global batch's on a mesh)."""
+        if mesh is None:
             loss.backward()
-            loss = loss.detach()
+            return loss.detach()
+        with bind(mesh):
+            loss.backward()
+        return _reduce_grads(mesh, tree_leaves(state["params"]),
+                             loss.detach(), reductions, batch_axes, n_batch)
+
+    def train_step(state: Dict, batch):
+        if tracing.profiler._is_profiler_enabled:
+            # The step's phases as spans and device ranges.
+            with tracing.local_span("train.step"):
+                with tracing.local_span("train.forward", device):
+                    opt, loss = forward(state, batch)
+                with tracing.local_span("train.backward", device):
+                    loss = backward(state, loss)
+                with tracing.local_span("train.optimizer", device):
+                    opt.step()
         else:
-            with bind(mesh):
-                used = params
-                if plan:
-                    leaves = tree_leaves(params)
-                    used = tree_unflatten(params, _GatherForUse.apply(
-                        plan, mesh, *leaves))
-                loss = loss_fn(used, (inputs, targets))
-                loss.backward()
-            loss = _reduce_grads(mesh, tree_leaves(params), loss.detach(),
-                                 reductions, batch_axes, n_batch)
-        opt.step()
+            opt, loss = forward(state, batch)
+            loss = backward(state, loss)
+            opt.step()
         state["step"] += 1
         return state, {"loss": loss}
 

@@ -22,6 +22,10 @@ by vocab rows, its lookup summed over the ranks, and the cross entropy
 runs on each rank's vocab columns with the max, the sum of exponentials
 and the target's logit combined over ``tp``. The loss and every
 gradient are the unsplit model's.
+
+While tracing records (``util.tracing``), the loss from the head's input
+to the scalar is the device range ``model.loss`` and ``gpt_forward``'s
+head with its f32 cast ``model.head``.
 """
 
 from __future__ import annotations
@@ -35,9 +39,10 @@ from torch.utils.checkpoint import checkpoint
 
 from .._device import DeviceLike, resolve_device
 from ..ops.attention import flash_attention
-from ..ops.layers import rms_norm, rope
+from ..ops.layers import gelu, rms_norm, rope
 from ..parallel.ops import (allgather, dots_with_no_batch_dims_saveable,
                             grad_allreduce, saveable_matmul)
+from ..util import tracing
 from ._init import normal
 from ._megatron import embed_tokens, log_likelihood_sum, vocab_offset
 from ._training import (gather_params, make_train_step_for, place_params,
@@ -163,11 +168,11 @@ def _block(x: torch.Tensor, layer: Dict, cfg: GPTConfig,
     attn = flash_attention(q, k, v, True, None)
     attn = attn.transpose(1, 2).reshape(b, s, width)
     x = x + saveable_matmul(attn, layer["wo"], tp)
-    # MLP: jax.nn.gelu's default is the tanh form.
+    # MLP
     y = rms_norm(x, layer["ln2"])
     if tp is not None:
         y = grad_allreduce(y, tp)
-    hidden = F.gelu(saveable_matmul(y, layer["w1"]), approximate="tanh")
+    hidden = gelu(saveable_matmul(y, layer["w1"]))
     return x + saveable_matmul(hidden, layer["w2"], tp)
 
 
@@ -207,9 +212,16 @@ def gpt_forward(params: Dict, tokens: torch.Tensor, cfg: GPTConfig,
     gets all the logits."""
     x = _backbone(params, tokens, cfg, tp_axis)
     if tp_axis is None:
-        return (x @ _head(params)).float()
+        if tracing.profiler._is_profiler_enabled:
+            return tracing.device_range("model.head", _logits, x,
+                                        _head(params))
+        return _logits(x, _head(params))
     x = grad_allreduce(x, tp_axis)
-    return allgather((x @ _head(params)).float(), tp_axis, axis=-1)
+    return allgather(_logits(x, _head(params)), tp_axis, axis=-1)
+
+
+def _logits(x: torch.Tensor, head: torch.Tensor) -> torch.Tensor:
+    return (x @ head).float()
 
 
 _LOSS_CHUNK = 4096
@@ -227,6 +239,16 @@ def gpt_loss(params: Dict, batch: Tuple[torch.Tensor, torch.Tensor],
     sum of exponentials and target logit are combined over the axis."""
     tokens, targets = batch
     x = _backbone(params, tokens, cfg, tp_axis)
+    if tracing.profiler._is_profiler_enabled:
+        return tracing.device_range("model.loss", _head_loss, x, params,
+                                    targets, tp_axis)
+    return _head_loss(x, params, targets, tp_axis)
+
+
+def _head_loss(x: torch.Tensor, params: Dict, targets: torch.Tensor,
+               tp_axis: Optional[str]) -> torch.Tensor:
+    """The loss from the backbone's output ``x``: the head's products and
+    the cross entropy, chunked (see ``gpt_loss``)."""
     head = _head(params)
     xf = x.reshape(-1, x.shape[-1])
     tf = targets.reshape(-1).long()

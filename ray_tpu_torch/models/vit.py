@@ -31,10 +31,11 @@ from torch.utils.checkpoint import checkpoint
 
 from .._device import DeviceLike, resolve_device
 from ..ops.attention import flash_attention
-from ..ops.layers import rms_norm
+from ..ops.layers import gelu, rms_norm
 from ..parallel.ops import (allreduce, axis_index,
                             dots_with_no_batch_dims_saveable, grad_allreduce,
                             saveable_matmul)
+from ..util import tracing
 from ._init import normal
 from ._training import make_train_step_for, split_model_axes
 from .convert import params_to
@@ -188,11 +189,10 @@ def _block(x: torch.Tensor, layer: Dict, cfg: ViTConfig,
     attn = flash_attention(q, k, v, causal=False)  # bidirectional
     attn = attn.transpose(1, 2).reshape(b, s, width)
     x = x + saveable_matmul(attn, layer["wo"], tp)
-    # jax.nn.gelu's default is the tanh form.
     y = rms_norm(x, layer["ln2"])
     if tp is not None:
         y = grad_allreduce(y, tp)
-    hidden = F.gelu(saveable_matmul(y, layer["w1"]), approximate="tanh")
+    hidden = gelu(saveable_matmul(y, layer["w1"]))
     return x + saveable_matmul(hidden, layer["w2"], tp)
 
 
@@ -214,6 +214,13 @@ def vit_forward(params: Dict, images: torch.Tensor, cfg: ViTConfig,
     """images [b, H, W, C] float -> logits [b, num_classes] (fp32). With
     ``tp_axis``, ``params`` are this rank's tp blocks; every rank gets
     all the logits."""
+    return _logits(_features(params, images, cfg, tp_axis), params)
+
+
+def _features(params: Dict, images: torch.Tensor, cfg: ViTConfig,
+              tp_axis: Optional[str]) -> torch.Tensor:
+    """images -> the CLS token's normed features [b, d], the head's
+    input."""
     x = _embed_patches(params, images, cfg, tp_axis)
     b = x.shape[0]
     cls = params["cls"].expand(b, 1, cfg.d_model).to(x.dtype)
@@ -229,15 +236,29 @@ def vit_forward(params: Dict, images: torch.Tensor, cfg: ViTConfig,
                            context_fn=dots_with_no_batch_dims_saveable)
         else:
             x = _block(x, layer, cfg, tp_axis)
-    x = rms_norm(x[:, 0], params["lnf"])  # CLS token
+    return rms_norm(x[:, 0], params["lnf"])  # CLS token
+
+
+def _logits(x: torch.Tensor, params: Dict) -> torch.Tensor:
     return (x @ params["head"]).float()
 
 
 def vit_loss(params: Dict, batch: Tuple[torch.Tensor, torch.Tensor],
              cfg: ViTConfig, tp_axis: Optional[str] = None) -> torch.Tensor:
-    """Cross entropy; batch = (images [b, H, W, C], labels [b] int)."""
+    """Cross entropy; batch = (images [b, H, W, C], labels [b] int). While
+    tracing records, the head and the cross entropy are the device range
+    ``model.loss``."""
     images, labels = batch
-    logp = F.log_softmax(vit_forward(params, images, cfg, tp_axis), dim=-1)
+    x = _features(params, images, cfg, tp_axis)
+    if tracing.profiler._is_profiler_enabled:
+        return tracing.device_range("model.loss", _head_loss, x, params,
+                                    labels)
+    return _head_loss(x, params, labels)
+
+
+def _head_loss(x: torch.Tensor, params: Dict,
+               labels: torch.Tensor) -> torch.Tensor:
+    logp = F.log_softmax(_logits(x, params), dim=-1)
     return -logp.gather(1, labels.long()[:, None])[:, 0].mean()
 
 

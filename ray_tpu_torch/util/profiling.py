@@ -121,13 +121,16 @@ def annotate(name: str):
 class Timer:
     """Lightweight wall-clock section timer for host-side code paths
     (reference: _private/profiling.py chrome-event helpers); records into
-    the GCS span store so the timeline includes it."""
+    the GCS span store so the timeline includes it, its ``ts`` in µs of
+    ``time.time_ns()``, the clock of every other span and of a
+    torch.profiler trace."""
 
     def __init__(self, name: str):
         self.name = name
         self.elapsed_s: Optional[float] = None
 
     def __enter__(self):
+        self._t0_ns = time.time_ns()
         self._t0 = time.perf_counter()
         return self
 
@@ -139,6 +142,6 @@ class Timer:
         if gcs is not None:
             gcs.record_spans([{
                 "name": self.name, "cat": "profiling",
-                "ts": (self._t0) * 1e6, "dur": self.elapsed_s * 1e6,
+                "ts": self._t0_ns / 1e3, "dur": self.elapsed_s * 1e6,
                 "pid": os.getpid(), "tid": 0, "ph": "X"}])
         return False

@@ -34,6 +34,27 @@ provably zero-work (counter-based perf_smoke guard). ``enable()``
 mirrors the flag into ``RTT_TRACING`` so spawned daemons, workers,
 and serve replicas inherit it.
 
+In-process records (the model, feed, generation and Data hot paths):
+
+  * **When**: while a torch.profiler session is active in the process
+    (``torch.autograd.profiler._is_profiler_enabled``, which the
+    profiler's start and stop hooks set, read through
+    ``tracing.profiler``), as ``record_function`` records. A hot site
+    tests ``tracing.profiler._is_profiler_enabled`` inline and calls
+    nothing when it is false. ``tracing.enabled``, the control plane's
+    switch that ``enable()`` hands to every process of a cluster, does
+    not turn them on.
+  * **What**: spans (name, id, parent id, start ns, end ns), counts
+    (name, ns, n) and device ranges (name, host start ns, then CUDA
+    events around the forward and, under autograd, the backward). They
+    stay in this process (never shipped on ``TASK_EVENTS``), in a
+    drop-oldest store of ``LOCAL_CAP`` records with an exact drop
+    count; ``local_records()`` resolves the events to device ms after a
+    sync, ``clear_local()`` empties the store.
+  * **Clock**: every stamp is ``time.time_ns()``, the host clock a
+    torch.profiler trace puts its events on; control-plane spans keep
+    their float-second fields, read from the same clock.
+
 Usage:
     from ray_tpu_torch.util import tracing
     tracing.enable()
@@ -49,10 +70,11 @@ import collections
 import contextlib
 import contextvars
 import os
+import sys
 import threading
+import itertools
 import time
-import uuid
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 _ENV_VAR = "RTT_TRACING"
 
@@ -84,9 +106,43 @@ _current: contextvars.ContextVar = contextvars.ContextVar(
     "ray_tpu_torch_trace", default=None)   # (trace_id, span_id) or None
 
 
+_cap: Optional[int] = None
+
+
 def _buffer_cap() -> int:
-    from .._private.config import ray_config
-    return max(16, int(ray_config.span_buffer_size))
+    """The control-plane buffer's capacity, read from the config once."""
+    global _cap
+    if _cap is None:
+        from .._private.config import ray_config
+        _cap = max(16, int(ray_config.span_buffer_size))
+    return _cap
+
+
+# Ids: a random per-process prefix and a counter (re-drawn in a forked
+# child), unique across the processes whose spans meet in one trace.
+_ids = itertools.count(1)
+_prefix = _prefix8 = ""
+
+
+def _new_prefix() -> None:
+    global _prefix, _prefix8, _ids
+    _prefix = os.urandom(8).hex()
+    _prefix8 = _prefix[:8]
+    _ids = itertools.count(1)
+
+
+_new_prefix()
+os.register_at_fork(after_in_child=_new_prefix)
+
+
+def _span_id() -> str:
+    """16 hex digits: the prefix's first 8 and the counter's low 32 bits."""
+    return f"{_prefix8}{next(_ids) & 0xFFFFFFFF:08x}"
+
+
+def _trace_id() -> str:
+    """32 hex digits: the prefix and the counter."""
+    return f"{_prefix}{next(_ids):016x}"
 
 
 def trace_ops() -> int:
@@ -159,7 +215,7 @@ def _record(span: dict) -> None:
     an exact counter. NO flush round trip here — spans leave the
     process on the telemetry plane's existing frames."""
     global _dropped
-    cap = _buffer_cap()
+    cap = _cap or _buffer_cap()
     with _lock:
         if len(_buffer) >= cap:
             _buffer.popleft()
@@ -222,35 +278,56 @@ def flush() -> None:
                 exc_info=True)
 
 
-@contextlib.contextmanager
+class _Span:
+    """One control-plane span, open from ``__enter__`` (which yields its
+    span id) to ``__exit__`` (which buffers it, with the error that ended
+    it, if any)."""
+    __slots__ = ("name", "attributes", "cur", "trace_id", "span_id",
+                 "token", "start", "otel")
+
+    def __init__(self, name: str, attributes: Dict):
+        self.name, self.attributes = name, attributes
+
+    def __enter__(self) -> str:
+        cur = self.cur = _current.get()
+        self.trace_id = cur[0] if cur else _trace_id()
+        self.span_id = _span_id()
+        self.token = _current.set((self.trace_id, self.span_id))
+        self.start = time.time_ns() / 1e9
+        tracer = _otel()
+        self.otel = None if tracer is None else \
+            tracer.start_as_current_span(self.name, attributes={
+                k: str(v) for k, v in (self.attributes or {}).items()})
+        if self.otel is not None:
+            self.otel.__enter__()
+        return self.span_id
+
+    def __exit__(self, exc_type, exc, tb) -> bool:
+        try:
+            if self.otel is not None:
+                self.otel.__exit__(exc_type, exc, tb)
+        finally:
+            _current.reset(self.token)
+            cur = self.cur
+            _record({
+                "name": self.name, "trace_id": self.trace_id,
+                "span_id": self.span_id,
+                "parent_span_id": cur[1] if cur else None,
+                "start": self.start, "end": time.time_ns() / 1e9,
+                "attributes": self.attributes or None,
+                "error": None if exc is None else repr(exc),
+            })
+        return False
+
+
 def span(name: str, **attributes: Any):
     """Record a span; nests under the active span, and downstream
     task/actor submissions inside it carry the context remotely."""
     global _ops
-    if not is_enabled():
-        yield None
-        return
+    if not (enabled or _current.get() is not None):
+        return contextlib.nullcontext()
     _ops += 1
-    cur = _current.get()
-    trace_id = cur[0] if cur else uuid.uuid4().hex
-    span_id = uuid.uuid4().hex[:16]
-    token = _current.set((trace_id, span_id))
-    start = time.time()
-    error = None
-    try:
-        with _maybe_otel_span(name, attributes):
-            yield span_id
-    except BaseException as e:
-        error = repr(e)
-        raise
-    finally:
-        _current.reset(token)
-        _record({
-            "name": name, "trace_id": trace_id, "span_id": span_id,
-            "parent_span_id": cur[1] if cur else None,
-            "start": start, "end": time.time(),
-            "attributes": attributes or None, "error": error,
-        })
+    return _Span(name, attributes)
 
 
 def activate_context(ctx: Optional[Dict[str, str]]):
@@ -271,19 +348,21 @@ def deactivate_context(token) -> None:
         _current.reset(token)
 
 
-@contextlib.contextmanager
-def _maybe_otel_span(name: str, attributes: Dict):
-    """Mirror to OpenTelemetry when available (reference:
-    _OpenTelemetryProxy:34 — tracing works without it installed)."""
-    try:
-        from opentelemetry import trace as otel_trace
-        tracer = otel_trace.get_tracer("ray_tpu_torch")
-    except Exception:
-        yield
-        return
-    with tracer.start_as_current_span(name, attributes={
-            k: str(v) for k, v in (attributes or {}).items()}):
-        yield
+_UNRESOLVED = object()
+_otel_tracer: Any = _UNRESOLVED
+
+
+def _otel() -> Any:
+    """The OpenTelemetry tracer, or None without the package: resolved
+    once a process (a failed import is not retried at every span)."""
+    global _otel_tracer
+    if _otel_tracer is _UNRESOLVED:
+        try:
+            from opentelemetry import trace as otel_trace
+            _otel_tracer = otel_trace.get_tracer("ray_tpu_torch")
+        except Exception:
+            _otel_tracer = None
+    return _otel_tracer
 
 
 # ---------------------------------------------------------------------------
@@ -424,3 +503,261 @@ def export_chrome_trace(filename: Optional[str] = None,
         with open(filename, "w") as f:
             json.dump(events, f)
     return events
+
+
+# ---------------------------------------------------------------------------
+# in-process records: the hot paths' spans, counts and device ranges
+# ---------------------------------------------------------------------------
+class _Unbound:
+    """Stands in for ``torch.autograd.profiler`` until torch is imported
+    (the Data layer runs without it): the first read of the flag after
+    that binds ``profiler`` to the module, so no caller has to."""
+
+    def __getattr__(self, attr: str) -> Any:
+        global profiler
+        module = sys.modules.get("torch.autograd.profiler")
+        if module is None:
+            return False
+        profiler = module
+        return getattr(module, attr)
+
+
+# The hot sites' gate reads ``profiler._is_profiler_enabled``.
+profiler: Any = sys.modules.get("torch.autograd.profiler") or _Unbound()
+
+# At least 8 times what a 10-s traced benchmark window makes in any cell.
+LOCAL_CAP = 65536
+
+_local: collections.deque = collections.deque()
+# Taken only to drop: appends are atomic, and a drop re-checks the length
+# under it, so every record dropped is counted once.
+_local_lock = threading.Lock()
+_now = time.time_ns
+_local_dropped = 0
+# The latest stamp among the dropped records (0: none dropped).
+_local_dropped_ns = 0
+_local_ids = itertools.count(1)
+_local_current: contextvars.ContextVar = contextvars.ContextVar(
+    "ray_tpu_torch_local_span", default=0)   # the open span's id, 0: none
+
+# Slots of a device range record: ["range", name, host start ns, forward
+# start, forward end, backward start, backward end]. A stamp is a CUDA
+# event, or host ns for a range on CPU tensors.
+_FWD0, _FWD1, _BWD0, _BWD1 = 3, 4, 5, 6
+
+
+def _keep(record: list) -> None:
+    """Store one record; past LOCAL_CAP the oldest goes (counted, with the
+    latest stamp dropped)."""
+    if len(_local) >= LOCAL_CAP:
+        _drop_oldest()
+    _local.append(record)
+
+
+def _drop_oldest() -> None:
+    global _local_dropped, _local_dropped_ns
+    with _local_lock:
+        if len(_local) >= LOCAL_CAP:
+            old = _local.popleft()
+            _local_dropped += 1
+            _local_dropped_ns = max(_local_dropped_ns, _stamp_of(old))
+
+
+def _stamp_of(record: list) -> int:
+    """A record's latest host stamp: a span's end, a count's or a range's
+    start."""
+    return record[5] if record[0] == "span" else record[2]
+
+
+class _LocalSpan:
+    """A hot span; with a device, also a device range over the enclosed
+    work on the current stream (no autograd node)."""
+    __slots__ = ("record", "token", "range")
+
+    def __init__(self, name: str, device):
+        self.record = ["span", name, next(_local_ids), 0, 0, 0]
+        self.range = None if device is None else _stream_range(name, device)
+
+    def __enter__(self):
+        rec = self.record
+        rec[3] = _local_current.get()
+        self.token = _local_current.set(rec[2])
+        rec[4] = _now()
+        if self.range is not None:
+            self.range[2] = rec[4]
+            self.range[_FWD0] = self.range.stamp()
+        return self
+
+    def __exit__(self, *exc):
+        rec = self.record
+        if self.range is not None:
+            self.range[_FWD1] = self.range.stamp()
+            _keep(self.range)
+        rec[5] = _now()
+        _local_current.reset(self.token)
+        _keep(rec)
+        return False
+
+
+class _Range(list):
+    """A device range record, and the stamp its device takes."""
+    __slots__ = ("stamp",)
+
+    def __init__(self, name: str, start_ns: int, stamp: Callable):
+        super().__init__(("range", name, start_ns, None, None, None, None))
+        self.stamp = stamp
+
+
+def _stream_range(name: str, device) -> Optional[_Range]:
+    import torch
+    stamp = _stamper(torch.device(device).type == "cuda")
+    return None if stamp is None else _Range(name, 0, stamp)
+
+
+def _stamper(cuda: bool) -> Optional[Callable[[], Any]]:
+    """How a range is stamped: on a card by a timed CUDA event on the
+    current stream, on the CPU by host ns; None while a CUDA graph is
+    being captured (a timed event cannot be)."""
+    if not cuda:
+        return _now
+    import torch
+    if torch.cuda.is_current_stream_capturing():
+        return None
+    return _cuda_event
+
+
+def _cuda_event():
+    import torch
+    ev = torch.cuda.Event(enable_timing=True)
+    ev.record()
+    return ev
+
+
+def local_span(name: str, device=None) -> _LocalSpan:
+    """A context manager recording a hot span ``name`` (nested under the
+    open one); with ``device``, also a device range of the same name over
+    the enclosed work on the current stream. Call it under the gate."""
+    global _ops
+    _ops += 1
+    return _LocalSpan(name, device)
+
+
+def local_call(name: str, fn: Callable, *args, **kwargs):
+    """``fn(*args, **kwargs)`` inside a hot span ``name``. Call it under
+    the gate."""
+    global _ops
+    _ops += 1
+    with _LocalSpan(name, None):
+        return fn(*args, **kwargs)
+
+
+def local_count(name: str, n: int) -> None:
+    """Record a count of ``n`` under ``name``, stamped now. Call it under
+    the gate."""
+    global _ops
+    _ops += 1
+    _keep(["count", name, _now(), n])
+
+
+_mark_cls = None
+
+
+def _mark():
+    """The identity autograd node that stamps a range's backward: on the
+    range's output it runs first (the backward starts), on its input
+    last (the backward ends). Built at first use (torch is imported
+    then)."""
+    global _mark_cls
+    if _mark_cls is None:
+        import torch
+
+        class _Mark(torch.autograd.Function):
+            @staticmethod
+            def forward(ctx, record, slot, x):
+                ctx.record, ctx.slot = record, slot
+                return x.view_as(x)
+
+            @staticmethod
+            def backward(ctx, grad):
+                ctx.record[ctx.slot] = ctx.record.stamp()
+                return None, None, grad
+
+        _mark_cls = _Mark
+    return _mark_cls
+
+
+def device_range(name: str, fn: Callable, x, *args, **kwargs):
+    """``fn(x, *args, **kwargs)`` as a device range ``name``: its forward
+    between two stamps on the current stream and, when ``x`` needs a
+    gradient, its backward between the stamps two identity autograd
+    nodes take, one on the output and one on ``x``. A CUDA tensor is
+    stamped by timed events, a CPU one by host ns. Call it under the
+    gate."""
+    global _ops
+    _ops += 1
+    stamp = _stamper(x.is_cuda)
+    if stamp is None:
+        return fn(x, *args, **kwargs)
+    import torch
+    rec = _Range(name, _now(), stamp)
+    grad = torch.is_grad_enabled() and x.requires_grad
+    rec[_FWD0] = stamp()
+    if grad:
+        x = _mark().apply(rec, _BWD1, x)
+    out = fn(x, *args, **kwargs)
+    if grad and out.requires_grad:
+        out = _mark().apply(rec, _BWD0, out)
+    rec[_FWD1] = stamp()
+    _keep(rec)
+    return out
+
+
+def _ms(a, b) -> Optional[float]:
+    if a is None or b is None:
+        return None
+    if isinstance(a, int):
+        return (b - a) / 1e6
+    return float(a.elapsed_time(b))
+
+
+def local_records() -> List[dict]:
+    """The stored records, oldest first, as dicts: ``{"kind": "span",
+    "name", "id", "parent", "start_ns", "end_ns"}`` (parent 0: a root),
+    ``{"kind": "count", "name", "ns", "n"}`` and ``{"kind": "range",
+    "name", "start_ns", "forward_ms", "backward_ms"}`` (backward None
+    where no backward ran). Synchronizes the card first when a range
+    holds CUDA events."""
+    with _local_lock:
+        records = list(_local)
+    if any(r[0] == "range" and r[_FWD0] is not None
+           and not isinstance(r[_FWD0], int) for r in records):
+        import torch
+        torch.cuda.synchronize()
+    out = []
+    for r in records:
+        kind = r[0]
+        if kind == "span":
+            out.append({"kind": kind, "name": r[1], "id": r[2],
+                        "parent": r[3], "start_ns": r[4], "end_ns": r[5]})
+        elif kind == "count":
+            out.append({"kind": kind, "name": r[1], "ns": r[2], "n": r[3]})
+        else:
+            out.append({"kind": kind, "name": r[1], "start_ns": r[2],
+                        "forward_ms": _ms(r[_FWD0], r[_FWD1]),
+                        "backward_ms": _ms(r[_BWD0], r[_BWD1])})
+    return out
+
+
+def local_dropped() -> Tuple[int, int]:
+    """(records dropped since the last ``clear_local``, the latest stamp
+    among them in ns; 0 when none)."""
+    return _local_dropped, _local_dropped_ns
+
+
+def clear_local() -> None:
+    """Empty the in-process store and its drop count."""
+    global _local_dropped, _local_dropped_ns
+    with _local_lock:
+        _local.clear()
+        _local_dropped = 0
+        _local_dropped_ns = 0

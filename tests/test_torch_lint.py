@@ -382,6 +382,76 @@ def test_gate_discipline_tracing_helpers(tmp_path):
     assert vs[0].key == "ungated:tracing.span"
 
 
+# Not among _TREES: the JAX package's lint has no recording helpers, so
+# this tree is the port's alone (no parity case).
+_RECORDING_TREE = {
+    "util/tracing.py": """\
+        enabled = False
+        _ops = 0
+
+        def local_span(name, device=None):
+            global _ops
+            _ops += 1
+
+        def device_range(name, fn, x):
+            global _ops
+            _ops += 1
+            return fn(x)
+    """,
+    "ops/layers.py": """\
+        from ..util import tracing
+
+        def ungated(x):
+            return tracing.device_range("model.norm", abs, x)
+
+        def blind(x):
+            if tracing.enabled:
+                return tracing.device_range("model.norm", abs, x)
+            return abs(x)
+
+        def either(x):
+            if tracing.enabled or tracing.profiler._is_profiler_enabled:
+                return tracing.device_range("model.norm", abs, x)
+            return abs(x)
+
+        def gated(x):
+            if tracing.profiler._is_profiler_enabled:
+                return tracing.device_range("model.norm", abs, x)
+            return abs(x)
+
+        def gated_ternary(x):
+            return (tracing.device_range("model.act", abs, x)
+                    if tracing.profiler._is_profiler_enabled else abs(x))
+
+        def gated_else(x):
+            if not tracing.profiler._is_profiler_enabled or x is None:
+                return abs(x)
+            else:
+                return tracing.device_range("model.act", abs, x)
+
+        def blind_span():
+            if tracing.enabled:
+                with tracing.local_span("train.step"):
+                    pass
+    """,
+}
+
+
+def test_gate_discipline_recording_helpers_read_the_profiler(tmp_path):
+    """device_range and the other hot-path recording helpers record in a
+    torch.profiler session alone: outside any gate, under
+    `tracing.enabled` (which a cluster's every process inherits) or under
+    `tracing.enabled or <the profiler flag>` they flag as ungated; the
+    profiler flag, in an `if`, its `else` or a ternary, passes."""
+    root = _tree(tmp_path, _RECORDING_TREE)
+    vs = sorted((v.scope, v.key) for v in _run(root, ["gate-discipline"]))
+    assert vs == [
+        ("blind", "ungated:tracing.device_range"),
+        ("blind_span", "ungated:tracing.local_span"),
+        ("either", "ungated:tracing.device_range"),
+        ("ungated", "ungated:tracing.device_range")]
+
+
 _named("protocol-coverage-every-chain", {
     "_private/protocol.py": _PROTO,
     "_private/worker_proc.py": """\

@@ -6,6 +6,7 @@ and copies."""
 import glob
 import json
 import os
+import time
 
 import torch
 
@@ -48,12 +49,17 @@ class TestProfiling:
     def test_timer_records_span(self):
         rt.init(num_cpus=1)
         try:
+            before = time.time_ns() / 1e3
             with profiling.Timer("my-section") as t:
                 pass
+            after = time.time_ns() / 1e3
             assert t.elapsed_s is not None
             from ray_tpu_torch._private.state import get_node
             spans = get_node().gcs.spans()
-            assert any(s["name"] == "my-section" for s in spans)
+            (mine,) = [s for s in spans if s["name"] == "my-section"]
+            # Stamped on the wall clock every span and a profiler trace
+            # share, in µs.
+            assert before <= mine["ts"] <= mine["ts"] + mine["dur"] <= after
             assert profiling.default_logdir() == os.path.join(
                 get_node().session_dir, "profiles")
         finally:
