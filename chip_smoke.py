@@ -22,7 +22,8 @@ one JSON line per phase:
                     shared-memory report per kernel, with its performance
                     notes (wgmma serialised, setmaxnreg ignored), and each
                     kernel's design read from its machine code; fails if
-                    a bf16 kernel spills or a bf16 K1, K2 or K3 is not
+                    a bf16 kernel (K1-K3, the RMSNorm kernels) spills
+                    or a bf16 K1, K2 or K3 is not
                     wgmma+tma. The full compiler output and the machine
                     code go to ray_tpu_torch/_build/build_log.txt and
                     sass.txt
@@ -41,6 +42,16 @@ one JSON line per phase:
                     twice on the same inputs (K3 on K2's delta) must give
                     bit-identical outputs; kernel, plain, whole-backward
                     and SDPA-backward times at the model shapes
+     compare_norm   the RMSNorm kernels (rms_norm_fwd, rms_norm_bwd,
+                    rms_norm_dw) through rms_norm's autograd vs the plain
+                    version's, forward, dx and dw, at the main paths'
+                    shapes (GPT-2 small's [65536, 768], ViT-B/16's
+                    [100864, 768] and its strided CLS rows [512, 768],
+                    generation's [131072, 768] under inference_mode,
+                    llama's [16384, 1024]), in f32 and at the layouts'
+                    edges; one launch of each a call, and dx and dw
+                    bit-identical over two backward calls; kernel,
+                    bound, plain and torch.nn.functional.rms_norm times
   5. heads_over_limit  K1, K2 and K3 above gridDim.y's 65,535 batch*heads
                     (causal [4097,16,64,64] forward and backward, ViT's
                     [5462,12,197,64] forward), launched in two chunks:
@@ -360,6 +371,17 @@ TOL_DELTA = 1e-5
 #   dividing by max|ref|: the same products, the softmax through lse
 #   instead of its own normalization.
 TOL_BWD_REF_NORM = 1e-4
+# RMSNorm kernels vs the plain version's forward and autograd backward,
+#   after dividing by max|ref|: y and dx are f32 values rounded once to
+#   the input dtype on both sides, from sums taken in other orders (warp
+#   shuffles vs torch's reductions), so a bf16 value may round the other
+#   way: a rounding step of bf16 (2**-8 = 3.9e-3) twice over; in f32 a
+#   few ulps of the sums. dw is an f32 sum over every row in another
+#   order (the kernels' fixed two-level order vs torch's).
+TOL_NORM_BF16 = 8e-3
+TOL_NORM_F32 = 1e-5
+TOL_NORM_DW = 1e-4
+
 # Model logits through 12 bf16 layers, card vs CPU or cached vs full
 #   forward, after dividing by max|ref|: every matmul output is rounded to
 #   bf16 on both sides, at different points (bf16 vs f32 of the same
@@ -460,6 +482,56 @@ def cuda_ms(fn, warmup: int = 3, iters: int = 20) -> float:
     return statistics.median(times)
 
 
+def queued_ms(fn, iters: int = 20) -> float:
+    """Per-call ms of ``iters`` calls queued back to back between two CUDA
+    events, after a warm-up: the card's time wherever the card, not the
+    host's wrapper, paces the calls."""
+    import torch
+
+    for _ in range(3):
+        fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def graph_ms(fn, iters: int = 20, replays: int = 5) -> float:
+    """Per-call device ms of ``fn``: ``iters`` calls captured in one CUDA
+    graph, whose replays are timed by CUDA events (median of ``replays``),
+    so no host time is counted, however short the kernel. The capture
+    adds its calls to the wrappers' launch counts."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    times = []
+    for _ in range(replays):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / iters)
+    del graph
+    torch.cuda.empty_cache()
+    return statistics.median(times)
+
+
 def attention_bound(shape, dtype_bytes: int, causal: bool, peak: float,
                     bw: float, matmuls: int = 2, tensors: int = 4,
                     rows: int = 0):
@@ -527,7 +599,16 @@ def phase_build():
 def _kernel_key(mangled: str) -> str:
     k = re.search(r"(flash_(?:fwd|bwd_dq|bwd_dkv)_(?:bf16|f32)_kernel)"
                   r"ILi(\d+)E", mangled)
-    return f"{k.group(1)}<{k.group(2)}>" if k else mangled
+    if k:
+        return f"{k.group(1)}<{k.group(2)}>"
+    # The RMSNorm kernels: <dtype, vectors a thread>; dw has no template.
+    k = re.search(r"(rms_norm_(?:fwd|bwd))_kernelI(13__nv_bfloat16|f)"
+                  r"Li(\d+)E", mangled)
+    if k:
+        dtype = "f32" if k.group(2) == "f" else "bf16"
+        return f"{k.group(1)}_{dtype}_kernel<{k.group(3)}>"
+    return "rms_norm_dw_f32_kernel" if "rms_norm_dw_kernel" in mangled \
+        else mangled
 
 
 def ptxas_report(logs) -> dict:
@@ -875,22 +956,23 @@ def phase_dag_fused(slice_ctx):
 
 
 def dag_checks(rows, n_layers: int) -> list:
-    """The names of the dag_fused checks that fail: K1 once a layer a
-    replay by the callable's count and by the profiler's, and no K2 or
-    K3; DAG_STEPS replays counted; the replayed tokens equal to the eager
-    DAG's and, at the slice's bucket, to phase_slice's; one graph per
-    size."""
+    """The names of the dag_fused checks that fail: K1 once a layer and
+    rms_norm_fwd once a norm a replay by the callable's count (K1 also by
+    the profiler's), and no backward kernel; DAG_STEPS replays counted;
+    the replayed tokens equal to the eager DAG's and, at the slice's
+    bucket, to phase_slice's; one graph per size."""
+    forward = expected_launches(n_layers, False, train=False)
     failed = []
     for i, r in enumerate(rows):
         name = f"{r['batch']}x{r['seq']}"
-        if r["per_replay_launches"] != {"flash_fwd": n_layers}:
+        if r["per_replay_launches"] != {k: n for k, n in forward.items()
+                                        if n}:
             failed.append(f"{name}: per-replay launches")
         if r["profiled_k1"] != n_layers:
             failed.append(f"{name}: profiler K1 count {r['profiled_k1']}, "
                           f"want {n_layers} ({r.get('empty_traces')} empty "
                           "traces)")
-        if r["launches"] != {"flash_fwd": n_layers * r["steps"],
-                             "flash_bwd_dq": 0, "flash_bwd_dkv": 0}:
+        if r["launches"] != {k: n * r["steps"] for k, n in forward.items()}:
             failed.append(f"{name}: launches over the replays")
         if not r["tokens_equal_eager_dag"]:
             failed.append(f"{name}: tokens vs the eager DAG")
@@ -940,7 +1022,8 @@ def trace_file(logdir: str) -> str:
 
 
 # The port's kernels by the name their trace events carry.
-TRACE_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+TRACE_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv",
+                 "rms_norm_fwd", "rms_norm_bwd", "rms_norm_dw")
 # The categories of a trace's events that ran on the card.
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 
@@ -1295,6 +1378,157 @@ def boundary_heads(bh: int, chunk: int) -> list:
     for edge in range(chunk, bh, chunk):
         heads.update(range(edge - 2, edge + 2))
     return sorted(h for h in heads if 0 <= h < bh)
+
+
+# The RMSNorm cases, (name, shape of the tensor normed, dtype, what is
+# normed, timed): "train" norms the whole tensor through forward and
+# backward, "cls" its strided CLS rows x[:, 0] (ViT's final norm), "infer"
+# the whole tensor's forward under inference_mode (generation). The
+# main paths: GPT-2 small's B=64 train step (65,536 rows), ViT-B/16's B=512
+# (100,864 rows), the generation stage's 128 x 1024 bucket, llama's bench
+# step (D = 1,024); then f32 (the compare phases' f32 steps) and the
+# layouts' edges: D = 64 (fewer vectors than lanes), 384 in f32 (several
+# vectors a lane), 8,192 (a team of 8 warps a row, also strided) and one
+# row.
+NORM_CASES = [
+    ("gpt", (64, 1024, 768), "bfloat16", "train", True),
+    ("vit", (512, 197, 768), "bfloat16", "train", True),
+    ("vit_cls", (512, 197, 768), "bfloat16", "cls", True),
+    ("generation", (128, 1024, 768), "bfloat16", "infer", True),
+    ("llama", (8, 2048, 1024), "bfloat16", "train", True),
+    ("f32", (16, 1024, 768), "float32", "train", True),
+    ("d64", (3, 5, 64), "bfloat16", "train", False),
+    ("d384_f32", (7, 384), "float32", "train", False),
+    ("d8192", (257, 8192), "bfloat16", "train", False),
+    ("d8192_f32", (33, 3, 8192), "float32", "cls", False),
+    ("one_row", (1, 1, 1024), "bfloat16", "train", False),
+]
+
+
+def norm_bound_ms(rows: int, d: int, dtype_bytes: int, bw: float,
+                  tensors: int) -> float:
+    """The least time of ``tensors`` [rows, d] read or written once: 2
+    forward (x read, y written), 3 backward (x and dy read, dx written),
+    so 10 bytes an element in bf16 for both. rstd, w and dw are under
+    0.1% of them and left out."""
+    return tensors * rows * d * dtype_bytes / bw * 1e3
+
+
+def phase_compare_norm(peaks):
+    """The RMSNorm kernels through ``rms_norm`` (its autograd Function on
+    CUDA tensors) vs the plain version ``_rms_norm`` with autograd, at
+    NORM_CASES: y, dx and dw within their bands, one launch of each kernel
+    a call (no backward launch under inference_mode), dx and dw the same
+    bits over two backward calls on the same inputs; at the timed cases
+    the kernels' forward ms and backward ms (rms_norm_bwd and rms_norm_dw)
+    by CUDA-graph replays (``graph_ms``: the wrappers' host time left out,
+    as a step queued ahead of the card leaves it out), their byte bound,
+    and, queued back to back (``queued_ms``), the plain version's forward
+    + backward and torch.nn.functional.rms_norm's (never called by the
+    port; its weight in x's dtype, as it takes one)."""
+    import torch
+    import torch.nn.functional as F
+
+    from ray_tpu_torch.ops import _kernels
+    from ray_tpu_torch.ops.layers import _rms_norm, rms_norm
+
+    eps = 1e-6
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    results = {}
+    for name, shape, dtype_name, kind, timed in NORM_CASES:
+        dtype = getattr(torch, dtype_name)
+        full = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+        d = shape[-1]
+        w = 1.0 + 0.1 * torch.randn(d, generator=gen, device="cuda")
+
+        def normed(t):
+            return t[:, 0] if kind == "cls" else t
+
+        x = normed(full)
+        g = torch.randn(x.shape, generator=gen, device="cuda").to(dtype)
+        rows = x.numel() // d
+        before = dict(_kernels.LAUNCHES)
+        if kind == "infer":
+            with torch.inference_mode():
+                y = rms_norm(x, w, eps)
+                y_ref = _rms_norm(x, w, eps)
+        else:
+            leaf, wk = full.clone().requires_grad_(), w.clone()
+            y = rms_norm(normed(leaf), wk.requires_grad_(), eps)
+            dx, dw = torch.autograd.grad(y, (leaf, wk), g)
+        ran = {n: _kernels.LAUNCHES[n] - before[n]
+               for n in ("rms_norm_fwd", "rms_norm_bwd", "rms_norm_dw")}
+        want = {"rms_norm_fwd": 1, "rms_norm_bwd": int(kind != "infer"),
+                "rms_norm_dw": int(kind != "infer")}
+
+        def err(a, b):
+            a, b = a.detach().float(), b.detach().float()
+            return float((a - b).abs().max() / b.abs().max())
+
+        tol = TOL_NORM_BF16 if dtype == torch.bfloat16 else TOL_NORM_F32
+        row = {"case": name, "shape": list(x.shape), "rows": rows,
+               "stride": x.reshape(-1, d).stride(0),
+               "dtype": dtype_name, "kind": kind, "launches": ran,
+               "tol": tol, "dw_tol": TOL_NORM_DW}
+        finite = bool(torch.isfinite(y).all())
+        if kind != "infer":
+            ref_leaf, ref_w = full.clone().requires_grad_(), w.clone()
+            y_ref = _rms_norm(normed(ref_leaf), ref_w.requires_grad_(), eps)
+            dx_ref, dw_ref = torch.autograd.grad(y_ref, (ref_leaf, ref_w), g)
+            row.update(dx_err=err(normed(dx), normed(dx_ref)),
+                       dw_err=err(dw, dw_ref))
+            finite = finite and bool(torch.isfinite(dx).all()) \
+                and bool(torch.isfinite(dw).all())
+            _, rstd = _kernels.rms_norm_fwd(x, w, eps)
+            first = _kernels.rms_norm_bwd(x, w, rstd, g)
+            again = _kernels.rms_norm_bwd(x, w, rstd, g)
+            row["bit_identical"] = all(bool(torch.equal(a, b))
+                                       for a, b in zip(first, again))
+            del leaf, ref_leaf, dx, dx_ref, first, again
+        row["y_err"] = err(y, y_ref)
+        if timed:
+            bw = peaks["bytes"]
+            train = kind != "infer"
+            row["fwd_ms"] = graph_ms(lambda: _kernels.rms_norm_fwd(
+                x, w, eps))
+            row["fwd_bound_ms"] = norm_bound_ms(rows, d, x.element_size(),
+                                                bw, 2)
+            w_lib = w.to(dtype)
+            if train:
+                row["bwd_ms"] = graph_ms(lambda: _kernels.rms_norm_bwd(
+                    x, w, rstd, g))
+                row["bwd_bound_ms"] = norm_bound_ms(
+                    rows, d, x.element_size(), bw, 3)
+                row["ms"] = row["fwd_ms"] + row["bwd_ms"]
+                row["bound_ms"] = row["fwd_bound_ms"] + row["bwd_bound_ms"]
+                xp = x.detach().clone().requires_grad_()
+                wp = w.clone().requires_grad_()
+                wl = w_lib.clone().requires_grad_()
+                row["plain_ms"] = queued_ms(lambda: torch.autograd.grad(
+                    _rms_norm(xp, wp, eps), (xp, wp), g), 5)
+                row["library_ms"] = queued_ms(lambda: torch.autograd.grad(
+                    F.rms_norm(xp, (d,), wl, eps), (xp, wl), g))
+                del xp, wp, wl
+            else:
+                row["ms"], row["bound_ms"] = row["fwd_ms"], row["fwd_bound_ms"]
+                with torch.inference_mode():
+                    row["plain_ms"] = queued_ms(lambda: _rms_norm(x, w, eps),
+                                                5)
+                    row["library_ms"] = queued_ms(
+                        lambda: F.rms_norm(x, (d,), w_lib, eps))
+            row["bound_ratio"] = row["ms"] / row["bound_ms"]
+        emit("compare_norm", **row)
+        check(finite, f"non-finite RMSNorm kernel output at {name}")
+        check(ran == want, f"{name}: launches {ran}, want {want}")
+        check(row["y_err"] <= tol and row.get("dx_err", 0.0) <= tol
+              and row.get("dw_err", 0.0) <= TOL_NORM_DW,
+              f"the RMSNorm kernels disagree with the plain version: {row}")
+        check(row.get("bit_identical", True),
+              f"{name}: two backward calls differ")
+        results[name] = row
+        del full, x, g, y, y_ref
+        torch.cuda.empty_cache()
+    return results
 
 
 def phase_heads_over_limit(peaks):
@@ -2435,8 +2669,8 @@ def cli_client_checks(m: dict) -> dict:
         "pool_in_band": len(pool["rows"]) == POOL_INPUTS and all(
             r["finite"] and r["max_norm_err"] <= TOL_BF16_NORM
             for r in pool["rows"]),
-        "pool_launches": pool["launches"] == {
-            "flash_fwd": POOL_INPUTS, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
+        "pool_launches": {k: n for k, n in pool["launches"].items() if n}
+        == {"flash_fwd": POOL_INPUTS}
         and len(pool["pids"]) == 1 and m["driver_pid"] not in pool["pids"]
         and all(one_card_id(r["cuda_visible_devices"])
                 for r in pool["rows"]),
@@ -2625,16 +2859,22 @@ def reset_launches() -> None:
 
 def expected_launches(n_layers: int, remat: bool, train: bool = True
                       ) -> dict:
-    """K1, K2 and K3 launches over one train step (or, ``train=False``,
-    one forward) of a model whose ``n_layers`` blocks each run one
-    flash_attention: K1 in every layer's forward and, under remat, again
-    when the checkpointed block is recomputed in the backward; K2 and K3
-    once a layer in the backward."""
+    """K1, K2 and K3 and the RMSNorm kernels' launches over one train
+    step (or, ``train=False``, one forward) of a model whose ``n_layers``
+    blocks each run one flash_attention and two rms_norms, and a final
+    rms_norm after them: K1 and the blocks' norm forwards in every
+    layer's forward and, under remat, again when the checkpointed block
+    is recomputed in the backward; K2 and K3 once a layer, rms_norm_bwd
+    and rms_norm_dw once a norm, in the backward."""
+    norms = 2 * n_layers + 1
     if not train:
         return {"flash_fwd": n_layers, "flash_bwd_dq": 0,
-                "flash_bwd_dkv": 0}
+                "flash_bwd_dkv": 0, "rms_norm_fwd": norms,
+                "rms_norm_bwd": 0, "rms_norm_dw": 0}
     return {"flash_fwd": n_layers * (2 if remat else 1),
-            "flash_bwd_dq": n_layers, "flash_bwd_dkv": n_layers}
+            "flash_bwd_dq": n_layers, "flash_bwd_dkv": n_layers,
+            "rms_norm_fwd": norms + (2 * n_layers if remat else 0),
+            "rms_norm_bwd": norms, "rms_norm_dw": norms}
 
 
 def llama_param_count(cfg) -> int:
@@ -4199,11 +4439,14 @@ def parallel_expected_launches(path: str, n_layers: int = 12,
         return {n: k * steps for n, k in
                 expected_launches(cfg.n_layers, cfg.remat).items()}
     if path == "ulysses":
-        return {"flash_fwd": 1, "flash_bwd_dq": 1, "flash_bwd_dkv": 1}
+        return {"flash_fwd": 1, "flash_bwd_dq": 1, "flash_bwd_dkv": 1,
+                "rms_norm_fwd": 0, "rms_norm_bwd": 0, "rms_norm_dw": 0}
+    # A stage is blocks alone (two norms each, no final norm).
     per_stage = n_layers // PAR_PP_STAGES * PAR_PP_MICRO
     fwd = per_stage * (2 if path == "1f1b" else 1)
     return {"flash_fwd": fwd, "flash_bwd_dq": per_stage,
-            "flash_bwd_dkv": per_stage}
+            "flash_bwd_dkv": per_stage, "rms_norm_fwd": 2 * fwd,
+            "rms_norm_bwd": 2 * per_stage, "rms_norm_dw": 2 * per_stage}
 
 
 def tp_all_reduce_bytes(cfg, b: int, s: int, chunk: int = 4096) -> int:
@@ -5251,7 +5494,7 @@ def phase_parallel() -> dict:
 
     def summed(kinds):
         return {n: sum(r["launches"][n] for k in kinds for r in rows[k])
-                for n in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")}
+                for n in rows[kinds[0]][0]["launches"]}
 
     return {"tp_train_ranks": summed(["tp"]),
             "fsdp_train_ranks": summed(["fsdp"]),
@@ -6438,6 +6681,7 @@ def main() -> int:
     designs = timed("build", phase_build)
     compared = timed("compare", phase_compare, peaks)
     compared_bwd = timed("compare_bwd", phase_compare_bwd, peaks)
+    compared_norm = timed("compare_norm", phase_compare_norm, peaks)
     over_limit = timed("heads_over_limit", phase_heads_over_limit, peaks)
     serving, slice_ctx = timed("slice", phase_slice)
     dag_fused = timed("dag_fused", phase_dag_fused, slice_ctx)
@@ -6491,7 +6735,7 @@ def main() -> int:
              "train_dp_worker": train_dp["launches"],
              "train_feed_worker": train_feed, **libraries, **parallel,
              "llama_train": llama["launches"], **vit, "moe_train": moe}
-    by_path = {name: {path: launches[name]
+    by_path = {name: {path: launches.get(name, 0)
                       for path, launches in paths.items()}
                for name in serving}
     slice_row = compared[(GPT2_SHAPE, "bfloat16", True)]
@@ -6569,6 +6813,33 @@ def main() -> int:
                                       ("vit_shape", bwd_vit),
                                       ("moe_shape", bwd_moe))},
             **extra,
+        })
+    gpt_norm = compared_norm["gpt"]
+    for name, key in (("rms_norm_fwd", "y_err"), ("rms_norm_bwd", "dx_err"),
+                      ("rms_norm_dw", "dw_err")):
+        # rms_norm_bwd's times hold rms_norm_dw's, which the wrapper
+        # launches after it; the forward's are its own.
+        times = ("fwd_ms", "fwd_bound_ms") if name == "rms_norm_fwd" \
+            else ("bwd_ms", "bwd_bound_ms")
+        kernels.append({
+            "name": name, "route": "cuda",
+            "design": kernel_design(designs, name)
+            or designs.get(f"{name}_f32_kernel", ""),
+            "source": "ray_tpu_torch/ops/csrc/rms_norm.cu",
+            "replaces": "none (ray_tpu/ops/layers.py::rms_norm is plain "
+                        "jnp)",
+            "launches": sum(by_path[name].values()),
+            "launches_by_path": by_path[name],
+            "max_err": max(r[key] for r in compared_norm.values()
+                           if key in r),
+            "shape": gpt_norm["shape"], "dtype": gpt_norm["dtype"],
+            "cases": {case: {k: r[k] for k in (
+                "shape", "dtype", "kind", "y_err", "dx_err", "dw_err",
+                "fwd_ms", "bwd_ms", "ms", "fwd_bound_ms", "bwd_bound_ms",
+                "bound_ms",
+                "bound_ratio", "plain_ms", "library_ms") if k in r}
+                for case, r in compared_norm.items() if "ms" in r},
+            **{k: gpt_norm[k] for k in times},
         })
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -14,12 +14,14 @@ on anything its kernel does not take, allocates the outputs with
 ``torch.empty``, launches on PyTorch's current stream and raises if the
 launch was refused. ``LAUNCHES[name]`` counts each launch, and nothing
 else adds to it. The attention wrappers launch once per chunk of at most
-``HEAD_CHUNK`` batch*heads (``head_chunks``).
+``HEAD_CHUNK`` batch*heads (``head_chunks``); the RMSNorm wrappers once a
+call (``rms_norm_bwd`` launches ``rms_norm_dw`` after it for dw).
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -41,12 +43,16 @@ SOURCES = {
     "flash_fwd": "flash_fwd.cu",
     "flash_bwd_dq": "flash_bwd.cu",
     "flash_bwd_dkv": "flash_bwd.cu",
+    "rms_norm_fwd": "rms_norm.cu",
+    "rms_norm_bwd": "rms_norm.cu",
+    "rms_norm_dw": "rms_norm.cu",
 }
 
 # kernel name -> launches since the count was last reset
 LAUNCHES: Dict[str, int] = {name: 0 for name in SOURCES}
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_L = ctypes.c_longlong
 # kernel name -> (C symbol, argtypes); every function returns cudaError_t.
 _SIGNATURES = {
     "flash_fwd": ("ray_tpu_torch_flash_fwd",
@@ -57,6 +63,11 @@ _SIGNATURES = {
     "flash_bwd_dkv": ("ray_tpu_torch_flash_bwd_dkv",
                       [_P, _P, _P, _P, _P, _P, _P, _P,
                        _I, _I, _I, _I, _I, _F, _I, _P]),
+    "rms_norm_fwd": ("ray_tpu_torch_rms_norm_fwd",
+                     [_P, _P, _P, _P, _I, _I, _L, _I, _F, _I, _P]),
+    "rms_norm_bwd": ("ray_tpu_torch_rms_norm_bwd",
+                     [_P, _P, _P, _P, _P, _P, _I, _I, _L, _I, _I, _I, _P]),
+    "rms_norm_dw": ("ray_tpu_torch_rms_norm_dw", [_P, _P, _I, _I, _I, _P]),
 }
 
 _libs: Dict[str, ctypes.CDLL] = {}         # source -> loaded library
@@ -287,3 +298,103 @@ def flash_bwd_dkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                 n, s, d, _FLASH_DTYPES[q.dtype], int(bool(causal)),
                 float(scale), _device_index(q), stream)
     return dk, dv
+
+
+# ---------------------------------------------------------------------------
+# RMSNorm: rms_norm_fwd, rms_norm_bwd and rms_norm_dw replace no TPU kernel
+# (ray_tpu/ops/layers.py::rms_norm is plain jnp, left to XLA).
+# ---------------------------------------------------------------------------
+_NORM_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+NORM_MAX_D = 8192
+# The backward's persistent grid: this many blocks on each SM.
+NORM_BWD_BLOCKS_PER_SM = 2
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _norm_rows(name: str, x: torch.Tensor, weight: torch.Tensor
+               ) -> Tuple[torch.Tensor, int]:
+    """Raise ValueError unless ``x`` is a float32 or bfloat16 CUDA tensor
+    [..., D] with a contiguous last dim, D a multiple of 8 up to
+    NORM_MAX_D, and ``weight`` a contiguous float32 [D] on its device, each
+    row and the weight 16-byte aligned. Returns x as [rows, D] (a view
+    where its leading dims merge into one stride) and that row stride."""
+    if x.dtype not in _NORM_DTYPES:
+        raise ValueError(f"{name} takes float32 or bfloat16 x, got {x.dtype}")
+    d = x.shape[-1] if x.dim() else 0
+    if d <= 0 or d % 8 or d > NORM_MAX_D:
+        raise ValueError(f"{name}: the last dim {d} must be a positive "
+                         f"multiple of 8 up to {NORM_MAX_D}")
+    if weight.dtype != torch.float32 or tuple(weight.shape) != (d,):
+        raise ValueError(f"{name} takes a float32 weight [{d}], got "
+                         f"{weight.dtype} {tuple(weight.shape)}")
+    if x.device.type != "cuda":
+        raise ValueError(f"{name} runs on CUDA tensors, got {x.device}")
+    if weight.device != x.device:
+        raise ValueError(f"{name}: x and weight must be on one device")
+    if x.stride(-1) != 1:
+        raise ValueError(f"{name}: x's last dim must be contiguous")
+    rows = x.reshape(-1, d)
+    if rows.shape[0] >= 2 ** 31:
+        raise ValueError(f"{name}: {rows.shape[0]} rows, at most 2**31 - 1")
+    stride = rows.stride(0) if rows.shape[0] > 1 else d
+    if rows.data_ptr() % 16 or stride * x.element_size() % 16 \
+            or not weight.is_contiguous() or weight.data_ptr() % 16:
+        raise ValueError(f"{name}: x's rows and the weight must be 16-byte "
+                         "aligned")
+    return rows, stride
+
+
+def rms_norm_fwd(x: torch.Tensor, weight: torch.Tensor, eps: float
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """RMSNorm forward on the card: x [..., D] -> (y in x's shape and
+    dtype, contiguous; rstd f32 [rows], which the backward reads)."""
+    rows, stride = _norm_rows("rms_norm_fwd", x, weight)
+    n, d = rows.shape
+    y = torch.empty((n, d), dtype=x.dtype, device=x.device)
+    rstd = torch.empty(n, dtype=torch.float32, device=x.device)
+    if n:
+        _launch("rms_norm_fwd", rows.data_ptr(), weight.data_ptr(),
+                y.data_ptr(), rstd.data_ptr(), n, d, stride,
+                _NORM_DTYPES[x.dtype], float(eps), _device_index(x),
+                torch.cuda.current_stream(x.device).cuda_stream)
+    return y.view(x.shape), rstd
+
+
+def rms_norm_bwd(x: torch.Tensor, weight: torch.Tensor, rstd: torch.Tensor,
+                 grad: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """RMSNorm backward on the card, from the forward's x and rstd and the
+    gradient of y: (dx in x's shape and dtype, contiguous; dw f32 [D]).
+    rms_norm_bwd writes dx and each block's dw partials into an f32
+    [blocks, D] scratch (blocks = NORM_BWD_BLOCKS_PER_SM per SM, at most
+    one a row); rms_norm_dw sums them in a fixed order."""
+    rows, stride = _norm_rows("rms_norm_bwd", x, weight)
+    n, d = rows.shape
+    if grad.dtype != x.dtype or grad.shape != x.shape \
+            or grad.device != x.device:
+        raise ValueError(f"rms_norm_bwd: the gradient must be {x.dtype} "
+                         f"{tuple(x.shape)} on {x.device}, got {grad.dtype} "
+                         f"{tuple(grad.shape)} on {grad.device}")
+    if rstd.dtype != torch.float32 or tuple(rstd.shape) != (n,) \
+            or not rstd.is_contiguous() or rstd.device != x.device:
+        raise ValueError(f"rms_norm_bwd: rstd must be float32 [{n}] on "
+                         f"{x.device}")
+    dx = torch.empty((n, d), dtype=x.dtype, device=x.device)
+    if not n:
+        return dx.view(x.shape), torch.zeros(d, dtype=torch.float32,
+                                             device=x.device)
+    g = grad.reshape(n, d).contiguous()
+    index = _device_index(x)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    blocks = min(NORM_BWD_BLOCKS_PER_SM * _sm_count(index), n)
+    partial = torch.empty((blocks, d), dtype=torch.float32, device=x.device)
+    dw = torch.empty(d, dtype=torch.float32, device=x.device)
+    _launch("rms_norm_bwd", rows.data_ptr(), g.data_ptr(), weight.data_ptr(),
+            rstd.data_ptr(), dx.data_ptr(), partial.data_ptr(), n, d, stride,
+            _NORM_DTYPES[x.dtype], blocks, index, stream)
+    _launch("rms_norm_dw", partial.data_ptr(), dw.data_ptr(), blocks, d,
+            index, stream)
+    return dx.view(x.shape), dw

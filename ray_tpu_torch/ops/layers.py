@@ -1,9 +1,14 @@
 """Elementwise / normalization layers used by the model stack.
 
-Counterpart of ``ray_tpu/ops/layers.py``. These stay plain PyTorch ops,
-as the JAX package left them to XLA; only attention has a kernel. In a
-torch.profiler session, ``rms_norm``, ``rope`` and ``gelu`` are the device
-ranges ``model.norm``, ``model.rope`` and ``model.act``
+Counterpart of ``ray_tpu/ops/layers.py``. ``rms_norm`` sends a CUDA
+tensor to the hand-written RMSNorm kernels (``csrc/rms_norm.cu``: the
+forward, and the backward with its dw reduction, behind ``_RMSNorm``), a
+CPU tensor to the plain version ``_rms_norm`` with autograd through it;
+there is no fallback between the two. ``rms_norm_bwd_reference`` is the
+kernel's backward arithmetic in plain torch. ``rope``, ``gelu`` and
+``swiglu`` stay plain PyTorch ops, as the JAX package left them to XLA.
+In a torch.profiler session, ``rms_norm``, ``rope`` and ``gelu`` are the
+device ranges ``model.norm``, ``model.rope`` and ``model.act``
 (``util.tracing.device_range``).
 """
 
@@ -13,14 +18,17 @@ import torch
 import torch.nn.functional as F
 
 from ..util import tracing
+from . import _kernels
 
 
 def rms_norm(x: torch.Tensor, weight: torch.Tensor,
              eps: float = 1e-6) -> torch.Tensor:
-    """RMSNorm; computed in fp32, cast back to input dtype."""
+    """RMSNorm; computed in fp32, cast back to input dtype. The kernels on
+    CUDA, the plain version on CPU."""
+    norm = _rms_norm if x.device.type == "cpu" else _RMSNorm.apply
     if tracing.profiler._is_profiler_enabled:
-        return tracing.device_range("model.norm", _rms_norm, x, weight, eps)
-    return _rms_norm(x, weight, eps)
+        return tracing.device_range("model.norm", norm, x, weight, eps)
+    return norm(x, weight, eps)
 
 
 def _rms_norm(x: torch.Tensor, weight: torch.Tensor,
@@ -29,6 +37,37 @@ def _rms_norm(x: torch.Tensor, weight: torch.Tensor,
     var = xf.square().mean(dim=-1, keepdim=True)
     normed = xf * torch.rsqrt(var + eps)
     return (normed * weight.float()).to(x.dtype)
+
+
+def rms_norm_bwd_reference(x: torch.Tensor, weight: torch.Tensor,
+                           grad: torch.Tensor, eps: float = 1e-6):
+    """The kernels' backward in plain torch: (dx in x's dtype, dw f32).
+
+    With rstd = rsqrt(mean(x²) + eps) and n = x rstd, all in f32:
+    dx = rstd (g w - n mean(g w n)) and dw = the sum over rows of g n."""
+    xf, g, w = x.float(), grad.float(), weight.float()
+    rstd = torch.rsqrt(xf.square().mean(dim=-1, keepdim=True) + eps)
+    n = xf * rstd
+    mean = (g * w * n).mean(dim=-1, keepdim=True)
+    dx = rstd * (g * w - n * mean)
+    return dx.to(x.dtype), (g * n).reshape(-1, x.shape[-1]).sum(0)
+
+
+class _RMSNorm(torch.autograd.Function):
+    """The CUDA path: rms_norm_fwd, and rms_norm_bwd with rms_norm_dw for
+    its gradient. Keeps x (no copy) and rstd for the backward."""
+
+    @staticmethod
+    def forward(ctx, x, weight, eps: float):
+        y, rstd = _kernels.rms_norm_fwd(x, weight, eps)
+        ctx.save_for_backward(x, weight, rstd)
+        return y
+
+    @staticmethod
+    def backward(ctx, grad):
+        x, weight, rstd = ctx.saved_tensors
+        dx, dw = _kernels.rms_norm_bwd(x, weight, rstd, grad)
+        return dx, dw, None
 
 
 def rope(x: torch.Tensor, position_offset: int = 0, base: float = 10000.0,

@@ -309,6 +309,53 @@ class TestModelPaths:
         assert counts(ViTConfig.vit_b16(), train=False) == (12, 0, 0)
         assert counts(MoEConfig()) == (8, 4, 4)
 
+    @pytest.mark.parametrize("family,remat,train", [
+        ("gpt", True, True), ("gpt", False, True), ("llama", True, True),
+        ("llama", False, True), ("vit", True, True), ("vit", False, False),
+        ("moe", True, True)])
+    def test_norm_forwards_per_step_match_the_model(self, monkeypatch,
+                                                     family, remat, train):
+        # The plain norm (the CPU path) is called once for each forward
+        # the kernel would run on the card: a tiny model's loss and its
+        # backward (a classifier's forward) counts expected_launches'.
+        from ray_tpu_torch import models
+        from ray_tpu_torch.models.convert import tree_leaves
+        from ray_tpu_torch.ops import layers
+
+        calls = []
+        plain = layers._rms_norm
+
+        def counted(*args):
+            calls.append(1)
+            return plain(*args)
+
+        monkeypatch.setattr(layers, "_rms_norm", counted)
+        cfg_cls = {"gpt": models.GPTConfig, "llama": models.LlamaConfig,
+                   "vit": models.ViTConfig, "moe": models.MoEConfig}[family]
+        cfg = dataclasses.replace(cfg_cls.tiny(), remat=remat)
+        init = getattr(models, f"{family}_init")
+        params = init(cfg, torch.Generator().manual_seed(0), "cpu")
+        for leaf in tree_leaves(params):
+            leaf.requires_grad_(train)
+        if family == "vit":
+            images = torch.randn(2, cfg.image_size, cfg.image_size,
+                                 cfg.channels)
+            batch = (images, torch.tensor([1, 2]))
+        else:
+            tokens = torch.randint(0, cfg.vocab_size, (2, 16))
+            batch = (tokens, tokens.roll(-1, 1))
+        with torch.set_grad_enabled(train):
+            if train:
+                loss = getattr(models, f"{family}_loss")(params, batch, cfg)
+                loss = loss[0] if isinstance(loss, tuple) else loss
+                loss.backward()
+            else:
+                models.vit_forward(params, batch[0], cfg)
+        want = cs.expected_launches(cfg.n_layers, remat, train)
+        assert len(calls) == want["rms_norm_fwd"]
+        assert want["rms_norm_bwd"] == want["rms_norm_dw"] == \
+            (2 * cfg.n_layers + 1 if train else 0)
+
     @pytest.mark.parametrize("preset", ["tpu_bench", "tiny"])
     def test_llama_param_count_matches_the_params(self, preset):
         import jax
@@ -491,7 +538,8 @@ class TestTrainDpPhase:
                                        str(tmp_path)).to_state()
         assert cs.state_digest(loaded["params"]) == cs.state_digest(params)
 
-    LAUNCHES = {"flash_fwd": 120, "flash_bwd_dq": 60, "flash_bwd_dkv": 60}
+    LAUNCHES = {"flash_fwd": 120, "flash_bwd_dq": 60, "flash_bwd_dkv": 60,
+                "rms_norm_fwd": 245, "rms_norm_bwd": 125, "rms_norm_dw": 125}
 
     def _report(self, world=1, **rank_changes):
         ranks = [{"cuda_visible_devices": str(r), "gpu_ids": [r],
@@ -557,7 +605,8 @@ class TestTrainDpPhase:
         assert cs.TRAIN_DP_STEPS == 5
         got = cs.train_dp_checks(self._report(), self.REFERENCE, 3, 5)
         assert got["expected_launches"] == {
-            "flash_fwd": 120, "flash_bwd_dq": 60, "flash_bwd_dkv": 60}
+            "flash_fwd": 120, "flash_bwd_dq": 60, "flash_bwd_dkv": 60,
+            "rms_norm_fwd": 245, "rms_norm_bwd": 125, "rms_norm_dw": 125}
         # the band is no looser than train_vs_cpu's bf16 loss band
         bf16 = dict((d, t) for d, _, t in cs.VS_CPU_RUNS)["bfloat16"]
         assert cs.TOL_TRAIN_DP_LOSS <= bf16["loss"]
@@ -588,7 +637,8 @@ class TestTrainFeedPhase:
         # f32 224x224x3 images: about 231 MB in the store
         assert round(n * cfg.image_size ** 2 * cfg.channels * 4 / 1e6) == 231
 
-    STEP = {"flash_fwd": 24, "flash_bwd_dq": 12, "flash_bwd_dkv": 12}
+    STEP = {"flash_fwd": 24, "flash_bwd_dq": 12, "flash_bwd_dkv": 12,
+            "rms_norm_fwd": 49, "rms_norm_bwd": 25, "rms_norm_dw": 25}
     REFERENCE = [7.1, 7.0, 6.9, 6.8, 6.7, 6.6]
 
     def _report(self, **changes):
@@ -607,7 +657,8 @@ class TestTrainFeedPhase:
         got = cs.train_feed_checks(self._report(), self.REFERENCE, 3, 5)
         assert all(got["checks"].values()), got
         assert got["expected_launches"] == {
-            "flash_fwd": 120, "flash_bwd_dq": 60, "flash_bwd_dkv": 60}
+            "flash_fwd": 120, "flash_bwd_dq": 60, "flash_bwd_dkv": 60,
+            "rms_norm_fwd": 245, "rms_norm_bwd": 125, "rms_norm_dw": 125}
 
     @pytest.mark.parametrize("change,failed", [
         ({"pid": 3}, "other_process"),
@@ -685,8 +736,9 @@ class TestDagFusedPhase:
         assert torch.equal(fused(tokens), want) and fused.graphs == {}
 
     def _rows(self):
-        step = {"flash_fwd": 12}
-        launches = {"flash_fwd": 96, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
+        step = {"flash_fwd": 12, "rms_norm_fwd": 25}
+        launches = {"flash_fwd": 96, "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
+                    "rms_norm_fwd": 200, "rms_norm_bwd": 0, "rms_norm_dw": 0}
         return [
             {"batch": 16, "seq": 1024, "steps": 8, "graphs": 1,
              "per_replay_launches": dict(step), "profiled_k1": 12,
@@ -705,6 +757,7 @@ class TestDagFusedPhase:
     @pytest.mark.parametrize("row,change", [
         (0, {"per_replay_launches": {}}),
         (1, {"per_replay_launches": {"flash_fwd": 24}}),
+        (0, {"per_replay_launches": {"flash_fwd": 12}}),    # a plain norm
         (0, {"profiled_k1": 0}),
         (1, {"launches": {"flash_fwd": 0, "flash_bwd_dq": 0,
                           "flash_bwd_dkv": 0}}),
@@ -762,6 +815,8 @@ class TestTraceSummary:
             ev("kernel", "flash_bwd_dq_bf16_kernel<64>", 40, 10),
             ev("kernel", "flash_bwd_dkv_bf16_kernel<64>", 60, 10),
             ev("kernel", "ampere_bf16_gemm", 70, 30),
+            ev("kernel", "void (anonymous namespace)::rms_norm_bwd_kernel"
+               "<__nv_bfloat16, 4>(__nv_bfloat16 const*)", 100, 5),
             ev("gpu_memcpy", "Memcpy HtoD (Pinned -> Device)", 5, 20,
                bytes=1000),
             ev("gpu_memcpy", "Memcpy DtoH (Device -> Pageable)", 90, 5,
@@ -772,13 +827,14 @@ class TestTraceSummary:
         assert cs.trace_file(str(tmp_path)) == str(path)
         got = cs.trace_summary(str(path))
         assert got["kernels"] == {"flash_fwd": 2, "flash_bwd_dq": 1,
-                                  "flash_bwd_dkv": 1}
+                                  "flash_bwd_dkv": 1, "rms_norm_fwd": 0,
+                                  "rms_norm_bwd": 1, "rms_norm_dw": 0}
         assert got["gemm_launches"] == 1
         assert got["htod_copies"] == 1 and got["htod_bytes"] == 1000
         assert got["htod_ms"] == pytest.approx(0.02)
         assert got["htod_overlap_share"] == pytest.approx(0.5)
-        assert got["kernel_busy_ms"] == pytest.approx(0.07)
-        assert got["device_events"] == 7
+        assert got["kernel_busy_ms"] == pytest.approx(0.075)
+        assert got["device_events"] == 8
 
     @pytest.mark.parametrize("device_events,runs,kept,empty", [
         ([5], 1, 5, 0),
@@ -807,19 +863,25 @@ class TestParallelPhase:
     the checks over the ranks' rows."""
 
     def test_per_rank_launch_expectations(self):
-        # tp and fsdp run every layer's attention on each rank (half the
-        # heads or half the rows): the remat step's 24/12/12, 3 steps.
-        want = {"flash_fwd": 72, "flash_bwd_dq": 36, "flash_bwd_dkv": 36}
+        # tp and fsdp run every layer's attention and norms on each rank
+        # (half the heads or half the rows): the remat step's 24/12/12
+        # and 49/25/25 (25 norms, the blocks' 24 recomputed), 3 steps.
+        want = {"flash_fwd": 72, "flash_bwd_dq": 36, "flash_bwd_dkv": 36,
+                "rms_norm_fwd": 147, "rms_norm_bwd": 75, "rms_norm_dw": 75}
         assert cs.parallel_expected_launches("tp") == want
         assert cs.parallel_expected_launches("fsdp") == want
         assert cs.parallel_expected_launches("ulysses") == {
-            "flash_fwd": 1, "flash_bwd_dq": 1, "flash_bwd_dkv": 1}
-        # 6 blocks a stage x 4 microbatches; 1F1B runs each stage's
-        # forward again for its backward.
+            "flash_fwd": 1, "flash_bwd_dq": 1, "flash_bwd_dkv": 1,
+            "rms_norm_fwd": 0, "rms_norm_bwd": 0, "rms_norm_dw": 0}
+        # 6 blocks a stage (two norms each, no final norm) x 4
+        # microbatches; 1F1B runs each stage's forward again for its
+        # backward.
         assert cs.parallel_expected_launches("gpipe") == {
-            "flash_fwd": 24, "flash_bwd_dq": 24, "flash_bwd_dkv": 24}
+            "flash_fwd": 24, "flash_bwd_dq": 24, "flash_bwd_dkv": 24,
+            "rms_norm_fwd": 48, "rms_norm_bwd": 48, "rms_norm_dw": 48}
         assert cs.parallel_expected_launches("1f1b") == {
-            "flash_fwd": 48, "flash_bwd_dq": 24, "flash_bwd_dkv": 24}
+            "flash_fwd": 48, "flash_bwd_dq": 24, "flash_bwd_dkv": 24,
+            "rms_norm_fwd": 96, "rms_norm_bwd": 48, "rms_norm_dw": 48}
 
     @pytest.fixture(scope="class")
     def pool(self):
@@ -1021,16 +1083,19 @@ class TestParallelPhase:
         assert [k for k, ok in checks.items() if not ok] == [failed]
 
     def test_family_launch_expectations(self):
-        # Every layer's attention on each rank, 3 steps: llama's
-        # tpu_bench without remat (16 layers), ViT-B/16 with (12), the
-        # MoE decoder with (4).
+        # Every layer's attention and 2 L + 1 norms on each rank, 3
+        # steps: llama's tpu_bench without remat (16 layers), ViT-B/16
+        # with (12), the MoE decoder with (4).
         assert cs.parallel_expected_launches("llama_tp") == {
-            "flash_fwd": 48, "flash_bwd_dq": 48, "flash_bwd_dkv": 48}
+            "flash_fwd": 48, "flash_bwd_dq": 48, "flash_bwd_dkv": 48,
+            "rms_norm_fwd": 99, "rms_norm_bwd": 99, "rms_norm_dw": 99}
         assert cs.parallel_expected_launches("vit_tp") == {
-            "flash_fwd": 72, "flash_bwd_dq": 36, "flash_bwd_dkv": 36}
+            "flash_fwd": 72, "flash_bwd_dq": 36, "flash_bwd_dkv": 36,
+            "rms_norm_fwd": 147, "rms_norm_bwd": 75, "rms_norm_dw": 75}
         for path in ("moe_tp", "moe_ep"):
             assert cs.parallel_expected_launches(path) == {
-                "flash_fwd": 24, "flash_bwd_dq": 12, "flash_bwd_dkv": 12}
+                "flash_fwd": 24, "flash_bwd_dq": 12, "flash_bwd_dkv": 12,
+                "rms_norm_fwd": 51, "rms_norm_bwd": 27, "rms_norm_dw": 27}
 
     def test_family_bytes_at_full_width(self):
         # llama tpu_bench at B=4, S=2048 (no remat): 4 [b, s, d] bf16
@@ -1588,9 +1653,11 @@ class TestMultinodePhase:
         "gpus_by_node": {"head": 0.0, "daemon": 1.0},
         "pool_actor": {"pid": 300, "node": "d" * 32, "pgid": 200,
                        "flash_fwd": 96, "flash_bwd_dq": 0,
-                       "flash_bwd_dkv": 0},
+                       "flash_bwd_dkv": 0, "rms_norm_fwd": 200,
+                       "rms_norm_bwd": 0, "rms_norm_dw": 0},
         "driver_launches": {"flash_fwd": 0, "flash_bwd_dq": 0,
-                            "flash_bwd_dkv": 0},
+                            "flash_bwd_dkv": 0, "rms_norm_fwd": 0,
+                            "rms_norm_bwd": 0, "rms_norm_dw": 0},
         "rows": 16, "equal_rows": 16,
         "tensor": {"node": "d" * 32, "device": "cpu",
                    "dtype": "torch.bfloat16", "equal": True,
@@ -1691,7 +1758,8 @@ class TestAutoscalePhase:
 def _cli_client_report():
     """A cli_client report as the card should give it."""
     call = {"launches": {"flash_fwd": 96, "flash_bwd_dq": 0,
-                         "flash_bwd_dkv": 0},
+                         "flash_bwd_dkv": 0, "rms_norm_fwd": 200,
+                         "rms_norm_bwd": 0, "rms_norm_dw": 0},
             "pid": 253, "pgid": 228, "node": "n" * 32,
             "cuda_visible_devices": "0", "rows": 16, "equal_rows": 16}
     row = {"max_norm_err": 3.4e-3, "finite": True, "pid": 289,
@@ -1845,7 +1913,8 @@ def _libraries_report():
                    "step_s": 0.13, "cuda_visible_devices": "0",
                    "gpu_ids": [0], "device_count": 1,
                    "launches": {"flash_fwd": 24, "flash_bwd_dq": 12,
-                                "flash_bwd_dkv": 12}}
+                                "flash_bwd_dkv": 12, "rms_norm_fwd": 49,
+                                "rms_norm_bwd": 25, "rms_norm_dw": 25}}
             if step == steps[0]:
                 row.update(cold_start_s=8.0, init_s=6.0,
                            process_age_at_entry_s=1.0,
@@ -2011,7 +2080,10 @@ class TestLibrariesPhase:
         assert len(rows) == 15
         assert cs.sum_launches(rows) == {"flash_fwd": 24 * 15,
                                          "flash_bwd_dq": 12 * 15,
-                                         "flash_bwd_dkv": 12 * 15}
+                                         "flash_bwd_dkv": 12 * 15,
+                                         "rms_norm_fwd": 49 * 15,
+                                         "rms_norm_bwd": 25 * 15,
+                                         "rms_norm_dw": 25 * 15}
         assert cs.sum_launches([]) == {}
 
     def test_trial_rows_and_summary(self, tmp_path):

@@ -87,6 +87,110 @@ class TestLayers:
             rtol=1e-5, atol=1e-5)
 
 
+def _norm_case(seed, layout, dtype):
+    """x (its full tensor and the rows normed), w f32 and a cotangent for
+    the normed rows, as torch tensors: ``rows`` norms a [3, 5, 64] tensor;
+    ``cls`` the CLS rows x[:, 0] of a [4, 6, 64] one (stride S*D, as ViT's
+    final norm). bf16 inputs are rounded once here, so both packages see
+    the same bits."""
+    rng = np.random.default_rng(seed)
+    full = torch.from_numpy(_randn(rng, *((4, 6, 64) if layout == "cls"
+                                          else (3, 5, 64)))).to(dtype)
+    w = torch.from_numpy(1.0 + 0.2 * _randn(rng, 64))
+    shape = (4, 64) if layout == "cls" else (3, 5, 64)
+    g = torch.from_numpy(_randn(rng, *shape)).to(dtype)
+    return full, w, g
+
+
+def _norm_rows(full, layout):
+    return full[:, 0] if layout == "cls" else full
+
+
+def _jnp(t):
+    return jnp.asarray(_np(t)).astype(
+        jnp.bfloat16 if t.dtype == torch.bfloat16 else jnp.float32)
+
+
+# Band of each dtype: f32 differs by the order of sums; bf16 outputs and
+# input gradients by a rounding step at most (2^-8 of the largest value).
+_NORM_TOL = {torch.float32: 2e-6, torch.bfloat16: 8e-3}
+
+
+class TestRMSNorm:
+    """``rms_norm``'s two paths held against ``jax.vjp`` of the JAX
+    package's ``rms_norm``: the plain version with autograd (a CPU
+    tensor's path), the kernels' backward arithmetic
+    (``rms_norm_bwd_reference``), and ``_RMSNorm`` (the CUDA path) run on
+    CPU tensors with its kernels replaced by those plain versions."""
+
+    CASES = [(layout, dtype) for layout in ("rows", "cls")
+             for dtype in (torch.float32, torch.bfloat16)]
+
+    def _jax(self, full, w, g, layout):
+        def f(a, b):
+            return jlayers.rms_norm(a[:, 0] if layout == "cls" else a, b)
+
+        y, vjp = jax.vjp(f, _jnp(full), jnp.asarray(_np(w)))
+        dx, dw = vjp(_jnp(g))
+        return y, dx, dw
+
+    @pytest.mark.parametrize("layout,dtype", CASES)
+    def test_plain_matches_jax_vjp(self, layout, dtype):
+        full, w, g = _norm_case(3, layout, dtype)
+        full.requires_grad_(True)
+        w.requires_grad_(True)
+        y = tlayers.rms_norm(_norm_rows(full, layout), w)
+        dx, dw = torch.autograd.grad(y, (full, w), g)
+        y_j, dx_j, dw_j = self._jax(full.detach(), w.detach(), g, layout)
+        tol = _NORM_TOL[dtype]
+        assert y.dtype == dtype and dx.dtype == dtype
+        assert dw.dtype == torch.float32
+        assert _grad_err(y, y_j) <= tol
+        assert _grad_err(dx, dx_j) <= tol
+        assert _grad_err(dw, dw_j) <= 1e-5
+
+    @pytest.mark.parametrize("layout,dtype", CASES)
+    def test_bwd_reference_matches_jax_vjp(self, layout, dtype):
+        full, w, g = _norm_case(4, layout, dtype)
+        dx, dw = tlayers.rms_norm_bwd_reference(_norm_rows(full, layout), w,
+                                                g)
+        _, dx_j, dw_j = self._jax(full, w, g, layout)
+        dx_full = torch.zeros_like(full)
+        _norm_rows(dx_full, layout).copy_(dx)
+        assert dx.dtype == dtype and dw.dtype == torch.float32
+        assert _grad_err(dx_full, dx_j) <= _NORM_TOL[dtype]
+        assert _grad_err(dw, dw_j) <= 1e-5
+
+    @pytest.mark.parametrize("layout,dtype", CASES)
+    def test_kernel_path_matches_jax_vjp(self, monkeypatch, layout, dtype):
+        seen = {}
+
+        def fwd(x, weight, eps):
+            seen["x"] = x
+            rstd = torch.rsqrt(x.float().square().mean(-1) + eps)
+            return tlayers._rms_norm(x, weight, eps), rstd.reshape(-1)
+
+        def bwd(x, weight, rstd, grad):
+            seen["bwd"] = (x, rstd)
+            return tlayers.rms_norm_bwd_reference(x, weight, grad)
+
+        monkeypatch.setattr(_kernels, "rms_norm_fwd", fwd)
+        monkeypatch.setattr(_kernels, "rms_norm_bwd", bwd)
+        full, w, g = _norm_case(5, layout, dtype)
+        full.requires_grad_(True)
+        w.requires_grad_(True)
+        y = tlayers._RMSNorm.apply(_norm_rows(full, layout), w, 1e-6)
+        dx, dw = torch.autograd.grad(y, (full, w), g)
+        y_j, dx_j, dw_j = self._jax(full.detach(), w.detach(), g, layout)
+        # The backward gets the forward's own x (no copy) and rstd.
+        assert seen["bwd"][0].data_ptr() == seen["x"].data_ptr()
+        assert seen["bwd"][0].stride() == seen["x"].stride()
+        assert seen["bwd"][1].dtype == torch.float32
+        assert _grad_err(y, y_j) <= _NORM_TOL[dtype]
+        assert _grad_err(dx, dx_j) <= _NORM_TOL[dtype]
+        assert _grad_err(dw, dw_j) <= 1e-5
+
+
 class TestAttentionReference:
     @pytest.mark.parametrize("causal", [True, False])
     @pytest.mark.parametrize("seq_k", [12, 20])
@@ -365,24 +469,52 @@ class TestKernelWrapper:
         with pytest.raises(ValueError, match="CUDA"):
             getattr(_kernels, name)(*args, True, 0.125)
 
+    @pytest.mark.parametrize("name", ["rms_norm_fwd", "rms_norm_bwd"])
+    def test_norm_cpu_tensors_are_refused(self, name):
+        x, w = torch.zeros(4, 64), torch.ones(64)
+        args = {"rms_norm_fwd": (x, w, 1e-6),
+                "rms_norm_bwd": (x, w, torch.ones(4), x)}[name]
+        with pytest.raises(ValueError, match="CUDA"):
+            getattr(_kernels, name)(*args)
+
+    @pytest.mark.parametrize("x,w,match", [
+        (torch.zeros(4, 64, dtype=torch.float16), torch.ones(64), "x"),
+        (torch.zeros(4, 12), torch.ones(12), "multiple of 8"),
+        (torch.zeros(2, 8200), torch.ones(8200), "multiple of 8"),
+        (torch.zeros(4, 0), torch.ones(0), "multiple of 8"),
+        (torch.zeros(4, 64), torch.ones(64, dtype=torch.bfloat16), "weight"),
+        (torch.zeros(4, 64), torch.ones(32), "weight"),
+    ])
+    def test_norm_unsupported_input_is_refused(self, x, w, match):
+        # The dtype and shape checks come before the device's, so they
+        # refuse these on the CPU as they would on the card.
+        with pytest.raises(ValueError, match=match):
+            _kernels.rms_norm_fwd(x, w, 1e-6)
+
     def test_nothing_built_or_counted_on_import(self):
         assert _kernels._libs == {} and _kernels._fns == {}
         assert _kernels.LAUNCHES == {
-            "flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
+            "flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
+            "rms_norm_fwd": 0, "rms_norm_bwd": 0, "rms_norm_dw": 0}
         assert set(_kernels._SIGNATURES) == set(_kernels.LAUNCHES)
 
-    # source -> the TPU kernels (ray_tpu/ops/attention.py) it replaces
-    REPLACES = {"flash_fwd.cu": ["_fwd_kernel"],
-                "flash_bwd.cu": ["_dq_kernel", "_dkv_kernel"]}
+    # source -> what its head note must say it replaces: TPU kernels of
+    # ray_tpu/ops/attention.py, or none and the plain jnp function it
+    # stands beside
+    REPLACES = {
+        "flash_fwd.cu": ["Replaces: ray_tpu/ops/attention.py::_fwd_kernel"],
+        "flash_bwd.cu": ["Replaces: ray_tpu/ops/attention.py::_dq_kernel",
+                         "Replaces: ray_tpu/ops/attention.py::_dkv_kernel"],
+        "rms_norm.cu": ["Replaces: none", "ray_tpu/ops/layers.py::rms_norm"],
+    }
 
     def test_sources_name_the_tpu_kernel_they_replace(self):
         assert set(_kernels.SOURCES.values()) == set(self.REPLACES)
-        for src, kernels in self.REPLACES.items():
+        for src, notes in self.REPLACES.items():
             with open(os.path.join(_kernels.CSRC, src)) as f:
                 head = f.read(4000)
-            for kernel in kernels:
-                assert f"Replaces: ray_tpu/ops/attention.py::{kernel}" \
-                    in head
+            for note in notes:
+                assert note in head
             assert "sm_90a" in head
 
 
