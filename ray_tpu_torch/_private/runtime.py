@@ -60,7 +60,9 @@ def _gc_stale_sessions(max_age_s: Optional[float] = None):
     session dir GC in _private/utils.py). Dirs whose stamped owner pid
     is dead go immediately; ownerless dirs keep a grace period —
     `max_age_s` when they hold content, one minute when they are
-    logs-only husks."""
+    logs-only husks. A store's `<store>_spill` dir (object_store.py)
+    matches the store glob too and belongs to its store: it is swept
+    with the store, never on its own while the store is there."""
     import glob
     import shutil
     if max_age_s is None:
@@ -71,6 +73,8 @@ def _gc_stale_sessions(max_age_s: Optional[float] = None):
     # daemons' (see config.session_dirs); all carry .owner_pid stamps.
     session_glob, store_glob = session_dirs("*")
     for d in glob.glob(store_glob) + glob.glob(session_glob):
+        if d.endswith("_spill") and os.path.isdir(d.removesuffix("_spill")):
+            continue
         try:
             # A live session's dir can be legitimately empty (worker
             # sockets are unlinked right after accept), so emptiness is
@@ -79,6 +83,7 @@ def _gc_stale_sessions(max_age_s: Optional[float] = None):
             pid, stamped = _session_owner_pid(d)
             if pid is not None and not _owner_alive(pid, stamped):
                 shutil.rmtree(d, ignore_errors=True)
+                shutil.rmtree(d + "_spill", ignore_errors=True)
             elif pid is None:
                 # No .owner_pid. Content decides: a dir holding nothing
                 # but logs/ is a husk (a prestart thread recreating
@@ -92,6 +97,7 @@ def _gc_stale_sessions(max_age_s: Optional[float] = None):
                     contentful = True
                 if age > (max_age_s if contentful else 60.0):
                     shutil.rmtree(d, ignore_errors=True)
+                    shutil.rmtree(d + "_spill", ignore_errors=True)
         except OSError:
             pass
 

@@ -329,6 +329,46 @@ class TestStaticIsolation:
         assert all(any(fnmatch.fnmatch(d, g) for g in port_globs)
                    for d in port_dirs)
 
+    @pytest.mark.parametrize("listing", ["spill_first", "store_first"])
+    def test_stale_session_sweep_keeps_a_live_stores_spill_dir(
+            self, listing, monkeypatch):
+        """A store's `<store>_spill` dir matches the sweep's store glob:
+        while the store's owner lives it stays, empty and two minutes
+        old; a dead owner's store goes with its spill dir, whichever of
+        the two the directory listing gives first."""
+        import glob
+        import time
+
+        from ray_tpu_torch._private.config import session_dirs
+        from ray_tpu_torch._private.runtime import _gc_stale_sessions
+
+        dead = subprocess.Popen([sys.executable, "-c", "pass"])
+        dead.wait()
+        tag = uuid.uuid4().hex[:8]
+        live_store = session_dirs(f"session_1760000000_{tag}a")[1]
+        dead_store = session_dirs(f"session_1760000000_{tag}b")[1]
+        dirs = [live_store, live_store + "_spill",
+                dead_store, dead_store + "_spill"]
+        try:
+            for d in dirs:
+                os.makedirs(d)
+            for store, pid in ((live_store, os.getpid()),
+                               (dead_store, dead.pid)):
+                with open(os.path.join(store, ".owner_pid"), "w") as f:
+                    f.write(str(pid))
+            open(os.path.join(dead_store + "_spill", "0" * 32), "w").close()
+            old = time.time() - 120
+            os.utime(live_store + "_spill", (old, old))
+            listed = glob.glob
+            monkeypatch.setattr(glob, "glob", lambda p: sorted(
+                listed(p), reverse=listing == "spill_first"))
+            _gc_stale_sessions()
+            assert [os.path.isdir(d) for d in dirs] == [True, True,
+                                                        False, False]
+        finally:
+            for d in dirs:
+                shutil.rmtree(d, ignore_errors=True)
+
     @pytest.mark.parametrize("long_tmpdir", [False, True])
     def test_two_tmpdirs_share_no_directory(self, tmp_path, long_tmpdir):
         """Two checkouts on one machine, each under a TMPDIR of its own
