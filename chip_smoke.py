@@ -22,7 +22,8 @@ one JSON line per phase:
                     shared-memory report per kernel, with its performance
                     notes (wgmma serialised, setmaxnreg ignored), and each
                     kernel's design read from its machine code; fails if
-                    a bf16 kernel (K1-K3, the RMSNorm kernels) spills
+                    a bf16 kernel (K1-K3, the RMSNorm kernels, the qkv
+                    split's) spills
                     or a bf16 K1, K2 or K3 is not
                     wgmma+tma. The full compiler output and the machine
                     code go to ray_tpu_torch/_build/build_log.txt and
@@ -52,6 +53,14 @@ one JSON line per phase:
                     edges; one launch of each a call, and dx and dw
                     bit-identical over two backward calls; kernel,
                     bound, plain and torch.nn.functional.rms_norm times
+     compare_qkv_rope  the qkv split's kernels (qkv_rope_fwd, qkv_rope_bwd)
+                    through qkv_heads' autograd vs the plain chain's
+                    (split, reshape, transpose, rope, .contiguous()):
+                    q, k, v and d(qkv) bit for bit at GPT-2 small's B=64
+                    step, generation's 128 x 1024 bucket (forward under
+                    inference_mode), a tp=2 rank's heads, head_dim 128,
+                    f32 and the layouts' edges; one launch of each a
+                    call; kernel, bound and plain chain times
   5. heads_over_limit  K1, K2 and K3 above gridDim.y's 65,535 batch*heads
                     (causal [4097,16,64,64] forward and backward, ViT's
                     [5462,12,197,64] forward), launched in two chunks:
@@ -607,6 +616,12 @@ def _kernel_key(mangled: str) -> str:
     if k:
         dtype = "f32" if k.group(2) == "f" else "bf16"
         return f"{k.group(1)}_{dtype}_kernel<{k.group(3)}>"
+    # The qkv split: <dtype>.
+    k = re.search(r"(qkv_rope_(?:fwd|bwd))_kernelI(13__nv_bfloat16|f)E",
+                  mangled)
+    if k:
+        dtype = "f32" if k.group(2) == "f" else "bf16"
+        return f"{k.group(1)}_{dtype}_kernel"
     return "rms_norm_dw_f32_kernel" if "rms_norm_dw_kernel" in mangled \
         else mangled
 
@@ -1023,7 +1038,8 @@ def trace_file(logdir: str) -> str:
 
 # The port's kernels by the name their trace events carry.
 TRACE_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv",
-                 "rms_norm_fwd", "rms_norm_bwd", "rms_norm_dw")
+                 "rms_norm_fwd", "rms_norm_bwd", "rms_norm_dw",
+                 "qkv_rope_fwd", "qkv_rope_bwd")
 # The categories of a trace's events that ran on the card.
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 
@@ -1527,6 +1543,129 @@ def phase_compare_norm(peaks):
               f"{name}: two backward calls differ")
         results[name] = row
         del full, x, g, y, y_ref
+        torch.cuda.empty_cache()
+    return results
+
+
+# The qkv split cases, (name, (batch, seq, heads, head_dim), dtype, kind,
+# timed): "train" runs qkv_heads forward and backward, "infer" its
+# forward under inference_mode (generation). The main paths: GPT-2
+# small's B=64 train step and the generation stage's 128 x 1024 bucket;
+# then a tp=2 rank's 6 heads, head_dim 128, f32 (the compare phases' f32
+# steps), and the layouts' edges: D = 16 (one lane a row), 48 (three
+# lanes a row: 256 threads hold no whole number of rows), 256 in f32 (32
+# lanes a row), one token, and more token tiles than gridDim.y's 65,535
+# (8 rows a block at D = 256 in f32).
+QKV_CASES = [
+    ("gpt", (64, 1024, 12, 64), "bfloat16", "train", True),
+    ("generation", (128, 1024, 12, 64), "bfloat16", "infer", True),
+    ("tp_local", (64, 1024, 6, 64), "bfloat16", "train", True),
+    ("d128", (8, 2048, 8, 128), "bfloat16", "train", True),
+    ("f32", (16, 1024, 12, 64), "float32", "train", False),
+    ("d16", (3, 129, 4, 16), "bfloat16", "train", False),
+    ("d48", (2, 77, 5, 48), "bfloat16", "train", False),
+    ("d256_f32", (2, 33, 3, 256), "float32", "train", False),
+    ("one_token", (1, 1, 1, 64), "bfloat16", "train", False),
+    ("tiles_over_limit", (1, 524296, 1, 256), "float32", "train", False),
+]
+
+
+def qkv_bound_ms(shape, dtype_bytes: int, bw: float) -> float:
+    """The least time of the qkv split's forward, or of its backward: its
+    3 B S h D elements read once and written once (4 bytes an element
+    each way in bf16). The f32 [S, D/2] rope tables, read from L2, are
+    under 1% of them at the model shapes and left out."""
+    b, s, h, d = shape
+    return 2 * 3 * b * s * h * d * dtype_bytes / bw * 1e3
+
+
+def phase_compare_qkv_rope(peaks):
+    """The qkv split's kernels through ``qkv_heads`` (its autograd
+    Function on CUDA tensors) vs the plain chain ``_qkv_heads`` (split,
+    reshape, transpose, ``_rope`` on q and k, ``.contiguous()`` on v) with
+    autograd, both on the card, at QKV_CASES: q, k, v and d(qkv) the same
+    bits (the largest difference recorded where they are not), one launch
+    of each kernel a call (no backward under inference_mode); at the
+    timed cases the forward's and the backward's ms by CUDA-graph replays
+    (``graph_ms``), their byte bound each, and the plain chain's forward
+    (+ backward) queued back to back (``queued_ms``)."""
+    import torch
+
+    from ray_tpu_torch.ops import _kernels
+    from ray_tpu_torch.ops.layers import _qkv_heads, _rope_tables, qkv_heads
+
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    names = ("qkv_rope_fwd", "qkv_rope_bwd")
+    results = {}
+    for name, shape, dtype_name, kind, timed in QKV_CASES:
+        dtype = getattr(torch, dtype_name)
+        b, s, h, d = shape
+        train = kind != "infer"
+        qkv = torch.randn((b, s, 3 * h * d), generator=gen,
+                          device="cuda").to(dtype)
+        grads = [torch.randn((b, h, s, d), generator=gen,
+                             device="cuda").to(dtype) for _ in range(3)]
+        before = dict(_kernels.LAUNCHES)
+        if train:
+            x, x_ref = qkv.clone().requires_grad_(), \
+                qkv.clone().requires_grad_()
+            got = qkv_heads(x, d)
+            dx, = torch.autograd.grad(got, x, grads)
+            ran = {n: _kernels.LAUNCHES[n] - before[n] for n in names}
+            want = _qkv_heads(x_ref, d)
+            dx_ref, = torch.autograd.grad(want, x_ref, grads)
+        else:
+            with torch.inference_mode():
+                got = qkv_heads(qkv, d)
+                ran = {n: _kernels.LAUNCHES[n] - before[n] for n in names}
+                want = _qkv_heads(qkv, d)
+        pairs = dict(zip("qkv", zip(got, want)))
+        if train:
+            pairs["dqkv"] = (dx, dx_ref)
+        same = {key: bool(torch.equal(a.detach(), r.detach()))
+                for key, (a, r) in pairs.items()}
+        row = {"case": name, "shape": list(shape), "dtype": dtype_name,
+               "kind": kind, "launches": ran, "bit_identical": same,
+               "max_abs_diff": {
+                   key: float((a.detach().float() - r.detach().float())
+                              .abs().max()) if not same[key] else 0.0
+                   for key, (a, r) in pairs.items()},
+               "layout": all(t.is_contiguous() and tuple(t.shape)
+                             == (b, h, s, d) for t in got),
+               "finite": all(bool(torch.isfinite(a).all())
+                             for a, _ in pairs.values())}
+        del pairs, got, want
+        if train:
+            del x, x_ref, dx, dx_ref
+        if timed:
+            cos, sin = _rope_tables(s, d, qkv.device)
+            row["fwd_ms"] = graph_ms(lambda: _kernels.qkv_rope_fwd(
+                qkv, d, cos, sin))
+            row["bound_ms"] = qkv_bound_ms(shape, qkv.element_size(),
+                                           peaks["bytes"])
+            row["fwd_bound_ratio"] = row["fwd_ms"] / row["bound_ms"]
+            if train:
+                row["bwd_ms"] = graph_ms(lambda: _kernels.qkv_rope_bwd(
+                    *grads, cos, sin))
+                row["bwd_bound_ratio"] = row["bwd_ms"] / row["bound_ms"]
+                xp = qkv.clone().requires_grad_()
+                row["plain_ms"] = queued_ms(lambda: torch.autograd.grad(
+                    _qkv_heads(xp, d), xp, grads), 5)
+                del xp
+            else:
+                with torch.inference_mode():
+                    row["plain_ms"] = queued_ms(lambda: _qkv_heads(qkv, d),
+                                                5)
+        emit("compare_qkv_rope", **row)
+        check(row["finite"], f"non-finite qkv split output at {name}")
+        check(ran == {"qkv_rope_fwd": 1, "qkv_rope_bwd": int(train)},
+              f"{name}: launches {ran}")
+        check(row["layout"], f"{name}: q, k, v are not contiguous "
+                             "[B, h, S, D]")
+        check(all(same.values()),
+              f"the qkv split's kernels differ from the plain chain: {row}")
+        results[name] = row
+        del qkv, grads
         torch.cuda.empty_cache()
     return results
 
@@ -2857,24 +2996,30 @@ def reset_launches() -> None:
         _kernels.LAUNCHES[name] = 0
 
 
-def expected_launches(n_layers: int, remat: bool, train: bool = True
-                      ) -> dict:
-    """K1, K2 and K3 and the RMSNorm kernels' launches over one train
-    step (or, ``train=False``, one forward) of a model whose ``n_layers``
-    blocks each run one flash_attention and two rms_norms, and a final
-    rms_norm after them: K1 and the blocks' norm forwards in every
-    layer's forward and, under remat, again when the checkpointed block
-    is recomputed in the backward; K2 and K3 once a layer, rms_norm_bwd
-    and rms_norm_dw once a norm, in the backward."""
+def expected_launches(n_layers: int, remat: bool, train: bool = True,
+                      qkv: bool = True) -> dict:
+    """K1, K2 and K3, the RMSNorm kernels' and the qkv split's launches
+    over one train step (or, ``train=False``, one forward) of a model
+    whose ``n_layers`` blocks each run one flash_attention and two
+    rms_norms (and, with ``qkv``, one qkv_heads: GPT's and MoE's blocks,
+    not llama's or ViT's), and a final rms_norm after them: K1 and the
+    blocks' norm and split forwards in every layer's forward and, under
+    remat, again when the checkpointed block is recomputed in the
+    backward; K2, K3 and qkv_rope_bwd once a layer, rms_norm_bwd and
+    rms_norm_dw once a norm, in the backward."""
     norms = 2 * n_layers + 1
+    splits = n_layers if qkv else 0
     if not train:
         return {"flash_fwd": n_layers, "flash_bwd_dq": 0,
                 "flash_bwd_dkv": 0, "rms_norm_fwd": norms,
-                "rms_norm_bwd": 0, "rms_norm_dw": 0}
+                "rms_norm_bwd": 0, "rms_norm_dw": 0,
+                "qkv_rope_fwd": splits, "qkv_rope_bwd": 0}
     return {"flash_fwd": n_layers * (2 if remat else 1),
             "flash_bwd_dq": n_layers, "flash_bwd_dkv": n_layers,
             "rms_norm_fwd": norms + (2 * n_layers if remat else 0),
-            "rms_norm_bwd": norms, "rms_norm_dw": norms}
+            "rms_norm_bwd": norms, "rms_norm_dw": norms,
+            "qkv_rope_fwd": splits * (2 if remat else 1),
+            "qkv_rope_bwd": splits}
 
 
 def llama_param_count(cfg) -> int:
@@ -3337,7 +3482,8 @@ def train_feed_checks(m: dict, reference, driver_pid: int, steps: int
     in-process steps on the same batches), bit for bit; the trace names
     K1-K3 as one step launches them; device_memory_stats' peak is
     torch's."""
-    expected = {k: v * steps for k, v in expected_launches(12, True).items()}
+    expected = {k: v * steps for k, v in
+                expected_launches(12, True, qkv=False).items()}
     ours, theirs = m["losses"], list(reference)
     traced = m["traced_step"]["kernels"]
     return {
@@ -3354,7 +3500,8 @@ def train_feed_checks(m: dict, reference, driver_pid: int, steps: int
             and all(a["equal"] for a in m["arrived"]),
             "losses_equal": ours == theirs
             and all(math.isfinite(x) for x in ours),
-            "trace_names_kernels": traced == expected_launches(12, True),
+            "trace_names_kernels": traced == expected_launches(
+                12, True, qkv=False),
             "memory_stats": m["memory_stats"].get("peak_bytes_in_use")
             == m["max_memory_allocated"] > 0}}
 
@@ -4077,7 +4224,7 @@ def phase_llama_train(peaks):
     batch = token_batch(cfg.vocab_size, b, s)
     losses, steps_s, launches = timed_steps(train_step, state, batch)
     step = statistics.median(steps_s)
-    expected = expected_launches(cfg.n_layers, cfg.remat)
+    expected = expected_launches(cfg.n_layers, cfg.remat, qkv=False)
     row = {"config": "llama tpu_bench", "remat": cfg.remat, "batch": b,
            "seq": s, "dtype": "bfloat16", "params": n_params,
            "step_ms_runs": [t * 1e3 for t in steps_s],
@@ -4149,7 +4296,7 @@ def phase_vit():
     batch = (torch.from_numpy(images).cuda(), torch.from_numpy(labels).cuda())
     losses, steps_s, launches = timed_steps(train_step, state, batch)
     step = statistics.median(steps_s)
-    expected = expected_launches(cfg.n_layers, cfg.remat)
+    expected = expected_launches(cfg.n_layers, cfg.remat, qkv=False)
     seq = cfg.num_patches + 1
     row = {"config": "vit_b16", "remat": cfg.remat, "batch": b, "seq": seq,
            "dtype": "bfloat16", "step_ms_runs": [t * 1e3 for t in steps_s],
@@ -4173,7 +4320,8 @@ def phase_vit():
         predict(images)
         walls.append(time.perf_counter() - t0)
     wall = statistics.median(walls)
-    expected_classify = expected_launches(cfg.n_layers, cfg.remat, False)
+    expected_classify = expected_launches(cfg.n_layers, cfg.remat, False,
+                                          qkv=False)
     emit("vit_classify", config="vit_b16", batch=b,
          wall_ms_runs=[w * 1e3 for w in walls], wall_ms_median=wall * 1e3,
          images_per_s=b / wall, launches=classify_launches,
@@ -4435,18 +4583,22 @@ def parallel_expected_launches(path: str, n_layers: int = 12,
         return {n: k * steps for n, k in
                 expected_launches(n_layers, True).items()}
     if path in PAR_FAMILIES:
-        cfg = family_config(PAR_FAMILIES[path][0])
-        return {n: k * steps for n, k in
-                expected_launches(cfg.n_layers, cfg.remat).items()}
+        family = PAR_FAMILIES[path][0]
+        cfg = family_config(family)
+        return {n: k * steps for n, k in expected_launches(
+            cfg.n_layers, cfg.remat, qkv=family == "moe").items()}
     if path == "ulysses":
         return {"flash_fwd": 1, "flash_bwd_dq": 1, "flash_bwd_dkv": 1,
-                "rms_norm_fwd": 0, "rms_norm_bwd": 0, "rms_norm_dw": 0}
-    # A stage is blocks alone (two norms each, no final norm).
+                "rms_norm_fwd": 0, "rms_norm_bwd": 0, "rms_norm_dw": 0,
+                "qkv_rope_fwd": 0, "qkv_rope_bwd": 0}
+    # A stage is blocks alone (two norms and one qkv split each, no final
+    # norm).
     per_stage = n_layers // PAR_PP_STAGES * PAR_PP_MICRO
     fwd = per_stage * (2 if path == "1f1b" else 1)
     return {"flash_fwd": fwd, "flash_bwd_dq": per_stage,
             "flash_bwd_dkv": per_stage, "rms_norm_fwd": 2 * fwd,
-            "rms_norm_bwd": 2 * per_stage, "rms_norm_dw": 2 * per_stage}
+            "rms_norm_bwd": 2 * per_stage, "rms_norm_dw": 2 * per_stage,
+            "qkv_rope_fwd": fwd, "qkv_rope_bwd": per_stage}
 
 
 def tp_all_reduce_bytes(cfg, b: int, s: int, chunk: int = 4096) -> int:
@@ -6682,6 +6834,7 @@ def main() -> int:
     compared = timed("compare", phase_compare, peaks)
     compared_bwd = timed("compare_bwd", phase_compare_bwd, peaks)
     compared_norm = timed("compare_norm", phase_compare_norm, peaks)
+    compared_qkv = timed("compare_qkv_rope", phase_compare_qkv_rope, peaks)
     over_limit = timed("heads_over_limit", phase_heads_over_limit, peaks)
     serving, slice_ctx = timed("slice", phase_slice)
     dag_fused = timed("dag_fused", phase_dag_fused, slice_ctx)
@@ -6840,6 +6993,25 @@ def main() -> int:
                 "bound_ratio", "plain_ms", "library_ms") if k in r}
                 for case, r in compared_norm.items() if "ms" in r},
             **{k: gpt_norm[k] for k in times},
+        })
+    gpt_qkv = compared_qkv["gpt"]
+    for name, way in (("qkv_rope_fwd", "fwd"), ("qkv_rope_bwd", "bwd")):
+        kernels.append({
+            "name": name, "route": "cuda",
+            "design": designs.get(f"{name}_bf16_kernel", ""),
+            "source": "ray_tpu_torch/ops/csrc/qkv_rope.cu",
+            "replaces": "none (the JAX package's qkv split and "
+                        "ray_tpu/ops/layers.py::rope are plain jnp)",
+            "launches": sum(by_path[name].values()),
+            "launches_by_path": by_path[name],
+            "bit_identical": all(all(r["bit_identical"].values())
+                                 for r in compared_qkv.values()),
+            "shape": gpt_qkv["shape"], "dtype": gpt_qkv["dtype"],
+            "ms": gpt_qkv[f"{way}_ms"], "bound_ms": gpt_qkv["bound_ms"],
+            "cases": {case: {k: r[k] for k in (
+                "shape", "dtype", "kind", "fwd_ms", "bwd_ms", "bound_ms",
+                "fwd_bound_ratio", "bwd_bound_ratio", "plain_ms") if k in r}
+                for case, r in compared_qkv.items() if "fwd_ms" in r},
         })
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

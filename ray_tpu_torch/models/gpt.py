@@ -39,7 +39,7 @@ from torch.utils.checkpoint import checkpoint
 
 from .._device import DeviceLike, resolve_device
 from ..ops.attention import flash_attention
-from ..ops.layers import gelu, rms_norm, rope
+from ..ops.layers import gelu, qkv_heads, rms_norm
 from ..parallel.ops import (allgather, dots_with_no_batch_dims_saveable,
                             grad_allreduce, saveable_matmul)
 from ..util import tracing
@@ -154,17 +154,12 @@ def _block(x: torch.Tensor, layer: Dict, cfg: GPTConfig,
     """One block. With ``tp``, ``layer`` holds this rank's blocks: its
     heads (n_heads / tp of them) and its d_ff / tp hidden units."""
     b, s, _ = x.shape
-    hd = cfg.head_dim
     # Attention
     y = rms_norm(x, layer["ln1"])
     if tp is not None:
         y = grad_allreduce(y, tp)
     width = layer["wqkv"].shape[-1] // 3
-    h = width // hd
-    q, k, v = saveable_matmul(y, layer["wqkv"]).split(width, dim=-1)
-    q = rope(q.reshape(b, s, h, hd).transpose(1, 2))
-    k = rope(k.reshape(b, s, h, hd).transpose(1, 2))
-    v = v.reshape(b, s, h, hd).transpose(1, 2).contiguous()
+    q, k, v = qkv_heads(saveable_matmul(y, layer["wqkv"]), cfg.head_dim)
     attn = flash_attention(q, k, v, True, None)
     attn = attn.transpose(1, 2).reshape(b, s, width)
     x = x + saveable_matmul(attn, layer["wo"], tp)

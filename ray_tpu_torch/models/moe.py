@@ -32,7 +32,7 @@ from torch.utils.checkpoint import checkpoint
 
 from .._device import DeviceLike, resolve_device
 from ..ops.attention import flash_attention
-from ..ops.layers import rms_norm, rope
+from ..ops.layers import qkv_heads, rms_norm
 from ..parallel.moe import moe_layer, moe_layer_split
 from ..parallel.ops import allreduce, grad_allreduce, remat_context
 from ._init import normal
@@ -154,17 +154,12 @@ def _block(x: torch.Tensor, layer: Dict, cfg: MoEConfig,
            ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One block. With ``split``, ``layer`` holds this rank's blocks."""
     b, s, d = x.shape
-    hd = cfg.head_dim
     tp = split.tp if split is not None else None
     y = rms_norm(x, layer["ln1"])
     if tp is not None:
         y = grad_allreduce(y, tp)
     width = layer["wqkv"].shape[-1] // 3
-    h = width // hd
-    q, k, v = (y @ layer["wqkv"]).split(width, dim=-1)
-    q = rope(q.reshape(b, s, h, hd).transpose(1, 2))
-    k = rope(k.reshape(b, s, h, hd).transpose(1, 2))
-    v = v.reshape(b, s, h, hd).transpose(1, 2).contiguous()
+    q, k, v = qkv_heads(y @ layer["wqkv"], cfg.head_dim)
     attn = flash_attention(q, k, v, True, None)
     attn = attn.transpose(1, 2).reshape(b, s, width)
     out = attn @ layer["wo"]

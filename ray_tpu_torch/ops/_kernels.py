@@ -15,7 +15,8 @@ on anything its kernel does not take, allocates the outputs with
 launch was refused. ``LAUNCHES[name]`` counts each launch, and nothing
 else adds to it. The attention wrappers launch once per chunk of at most
 ``HEAD_CHUNK`` batch*heads (``head_chunks``); the RMSNorm wrappers once a
-call (``rms_norm_bwd`` launches ``rms_norm_dw`` after it for dw).
+call (``rms_norm_bwd`` launches ``rms_norm_dw`` after it for dw); the qkv
+split's wrappers once a call.
 """
 
 from __future__ import annotations
@@ -46,6 +47,8 @@ SOURCES = {
     "rms_norm_fwd": "rms_norm.cu",
     "rms_norm_bwd": "rms_norm.cu",
     "rms_norm_dw": "rms_norm.cu",
+    "qkv_rope_fwd": "qkv_rope.cu",
+    "qkv_rope_bwd": "qkv_rope.cu",
 }
 
 # kernel name -> launches since the count was last reset
@@ -68,6 +71,10 @@ _SIGNATURES = {
     "rms_norm_bwd": ("ray_tpu_torch_rms_norm_bwd",
                      [_P, _P, _P, _P, _P, _P, _I, _I, _L, _I, _I, _I, _P]),
     "rms_norm_dw": ("ray_tpu_torch_rms_norm_dw", [_P, _P, _I, _I, _I, _P]),
+    "qkv_rope_fwd": ("ray_tpu_torch_qkv_rope_fwd",
+                     [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]),
+    "qkv_rope_bwd": ("ray_tpu_torch_qkv_rope_bwd",
+                     [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]),
 }
 
 _libs: Dict[str, ctypes.CDLL] = {}         # source -> loaded library
@@ -398,3 +405,92 @@ def rms_norm_bwd(x: torch.Tensor, weight: torch.Tensor, rstd: torch.Tensor,
     _launch("rms_norm_dw", partial.data_ptr(), dw.data_ptr(), blocks, d,
             index, stream)
     return dx.view(x.shape), dw
+
+
+# ---------------------------------------------------------------------------
+# The qkv split into heads with rope: qkv_rope_fwd and qkv_rope_bwd replace
+# no TPU kernel (the JAX package's split, head layout and rope are jnp, left
+# to XLA).
+# ---------------------------------------------------------------------------
+QKV_MAX_HEAD_DIM = 256
+
+
+def _check_qkv(name: str, t: torch.Tensor, head_dim: int) -> None:
+    """Raise ValueError unless ``t`` is a contiguous, 16-byte aligned
+    float32 or bfloat16 CUDA tensor and ``head_dim`` a multiple of 16 up to
+    QKV_MAX_HEAD_DIM."""
+    if t.dtype not in _FLASH_DTYPES:
+        raise ValueError(f"{name} takes float32 or bfloat16, got {t.dtype}")
+    if head_dim <= 0 or head_dim % 16 or head_dim > QKV_MAX_HEAD_DIM:
+        raise ValueError(f"{name}: head_dim {head_dim} must be a positive "
+                         f"multiple of 16 up to {QKV_MAX_HEAD_DIM}")
+    if t.device.type != "cuda":
+        raise ValueError(f"{name} runs on CUDA tensors, got {t.device}")
+    if not t.is_contiguous() or t.data_ptr() % 16:
+        raise ValueError(f"{name}: inputs must be contiguous and 16-byte "
+                         "aligned")
+
+
+def _check_tables(name: str, cos: torch.Tensor, sin: torch.Tensor, s: int,
+                  head_dim: int, device: torch.device) -> None:
+    want = (s, head_dim // 2)
+    for key, t in (("cos", cos), ("sin", sin)):
+        if t.dtype != torch.float32 or tuple(t.shape) != want \
+                or t.device != device or not t.is_contiguous() \
+                or t.data_ptr() % 16:
+            raise ValueError(f"{name}: {key} must be a contiguous, 16-byte "
+                             f"aligned float32 {list(want)} on {device}")
+
+
+def qkv_rope_fwd(qkv: torch.Tensor, head_dim: int, cos: torch.Tensor,
+                 sin: torch.Tensor
+                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The qkv split on the card: qkv [B, S, 3 h D] with columns
+    [q | k | v] -> (q, k, v), each contiguous [B, h, S, D]; q and k rotated
+    by rope with the f32 [S, D/2] tables ``cos`` and ``sin``."""
+    if qkv.dim() != 3 or head_dim <= 0 or qkv.shape[-1] % (3 * head_dim) \
+            or not qkv.shape[-1]:
+        raise ValueError(f"qkv_rope_fwd takes qkv [B, S, 3 h D] with D = "
+                         f"{head_dim}, got {tuple(qkv.shape)}")
+    _check_qkv("qkv_rope_fwd", qkv, head_dim)
+    b, s, width = qkv.shape
+    h = width // (3 * head_dim)
+    if 3 * b * h >= 2 ** 31:
+        raise ValueError(f"qkv_rope_fwd: 3 * batch * heads = {3 * b * h}, "
+                         "at most 2**31 - 1")
+    _check_tables("qkv_rope_fwd", cos, sin, s, head_dim, qkv.device)
+    q, k, v = (torch.empty((b, h, s, head_dim), dtype=qkv.dtype,
+                           device=qkv.device) for _ in range(3))
+    if b and s:
+        _launch("qkv_rope_fwd", qkv.data_ptr(), cos.data_ptr(),
+                sin.data_ptr(), q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                b, h, s, head_dim, _FLASH_DTYPES[qkv.dtype],
+                _device_index(qkv),
+                torch.cuda.current_stream(qkv.device).cuda_stream)
+    return q, k, v
+
+
+def qkv_rope_bwd(dq: torch.Tensor, dk: torch.Tensor, dv: torch.Tensor,
+                 cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
+    """The qkv split's backward on the card: dq, dk, dv [B, h, S, D] ->
+    d(qkv) [B, S, 3 h D]; dq and dk by the inverse rotation."""
+    grads = (dq, dk, dv)
+    if dq.dim() != 4 or len({(tuple(t.shape), t.dtype, t.device)
+                             for t in grads}) != 1:
+        raise ValueError("qkv_rope_bwd takes dq, dk, dv of one shape "
+                         "[B, h, S, D], dtype and device, got "
+                         f"{[(tuple(t.shape), t.dtype) for t in grads]}")
+    b, h, s, d = dq.shape
+    for t in grads:
+        _check_qkv("qkv_rope_bwd", t, d)
+    if 3 * b * h >= 2 ** 31:
+        raise ValueError(f"qkv_rope_bwd: 3 * batch * heads = {3 * b * h}, "
+                         "at most 2**31 - 1")
+    _check_tables("qkv_rope_bwd", cos, sin, s, d, dq.device)
+    dqkv = torch.empty((b, s, 3 * h * d), dtype=dq.dtype, device=dq.device)
+    if b and h and s:
+        _launch("qkv_rope_bwd", dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+                cos.data_ptr(), sin.data_ptr(), dqkv.data_ptr(), b, h, s, d,
+                _FLASH_DTYPES[dq.dtype], _device_index(dq),
+                torch.cuda.current_stream(dq.device).cuda_stream)
+    return dqkv

@@ -664,23 +664,24 @@ _mark_cls = None
 
 def _mark():
     """The identity autograd node that stamps a range's backward: on the
-    range's output it runs first (the backward starts), on its input
-    last (the backward ends). Built at first use (torch is imported
-    then)."""
+    range's outputs it runs first, once the gradients of all of them are
+    in (the backward starts), on its input last (the backward ends).
+    Built at first use (torch is imported then)."""
     global _mark_cls
     if _mark_cls is None:
         import torch
 
         class _Mark(torch.autograd.Function):
             @staticmethod
-            def forward(ctx, record, slot, x):
+            def forward(ctx, record, slot, *xs):
                 ctx.record, ctx.slot = record, slot
-                return x.view_as(x)
+                out = tuple(x.view_as(x) for x in xs)
+                return out if len(out) > 1 else out[0]
 
             @staticmethod
-            def backward(ctx, grad):
+            def backward(ctx, *grads):
                 ctx.record[ctx.slot] = ctx.record.stamp()
-                return None, None, grad
+                return (None, None, *grads)
 
         _mark_cls = _Mark
     return _mark_cls
@@ -690,9 +691,9 @@ def device_range(name: str, fn: Callable, x, *args, **kwargs):
     """``fn(x, *args, **kwargs)`` as a device range ``name``: its forward
     between two stamps on the current stream and, when ``x`` needs a
     gradient, its backward between the stamps two identity autograd
-    nodes take, one on the output and one on ``x``. A CUDA tensor is
-    stamped by timed events, a CPU one by host ns. Call it under the
-    gate."""
+    nodes take, one on the output (or on all the tensors of a tuple
+    output) and one on ``x``. A CUDA tensor is stamped by timed events, a
+    CPU one by host ns. Call it under the gate."""
     global _ops
     _ops += 1
     stamp = _stamper(x.is_cuda)
@@ -705,8 +706,9 @@ def device_range(name: str, fn: Callable, x, *args, **kwargs):
     if grad:
         x = _mark().apply(rec, _BWD1, x)
     out = fn(x, *args, **kwargs)
-    if grad and out.requires_grad:
-        out = _mark().apply(rec, _BWD0, out)
+    outs = out if isinstance(out, tuple) else (out,)
+    if grad and all(t.requires_grad for t in outs):
+        out = _mark().apply(rec, _BWD0, *outs)
     rec[_FWD1] = stamp()
     _keep(rec)
     return out

@@ -94,6 +94,19 @@ class TestPtxasReport:
             "flash_bwd_dkv_bf16_kernel<128>"]
         assert cs.spilling_kernels(report, "f32") == []
 
+    @pytest.mark.parametrize("mangled,key", [
+        ("_ZN12_GLOBAL__N_119qkv_rope_fwd_kernelI13__nv_bfloat16EEvPKT_PKf"
+         "S6_PS2_S7_S7_iii", "qkv_rope_fwd_bf16_kernel"),
+        ("_ZN12_GLOBAL__N_119qkv_rope_bwd_kernelIfEEvPKT_S3_S3_PKfS5_PS1_iii",
+         "qkv_rope_bwd_f32_kernel"),
+    ])
+    def test_qkv_split_kernels_keyed_by_dtype(self, mangled, key):
+        # Keyed like the other kernels, so the build's spill check (bf16)
+        # finds them.
+        report = cs.ptxas_report([_entry(mangled, 40, 8)])
+        assert set(report) == {key}
+        assert cs.spilling_kernels(report, key.split("_")[3]) == [key]
+
     def test_unknown_function_keeps_its_name(self):
         report = cs.ptxas_report([_entry("_Z10other_kernelv", 32)])
         assert report["_Z10other_kernelv"]["registers"].startswith("Used 32")
@@ -122,6 +135,15 @@ class TestAttentionBound:
         full, _ = cs.attention_bound((1, 1, 4096, 64), 2, False, 1e12, 1e18)
         half, _ = cs.attention_bound((1, 1, 4096, 64), 2, True, 1e12, 1e18)
         assert half == pytest.approx(full * 4097 / 8192)
+
+
+class TestQKVBound:
+    @pytest.mark.parametrize("shape,ms", [
+        ((64, 1024, 12, 64), 0.1803),    # GPT-2 small's B=64 step
+        ((128, 1024, 12, 64), 0.3606),   # generation's 128-row bucket
+    ])
+    def test_each_element_read_and_written_once(self, shape, ms):
+        assert round(cs.qkv_bound_ms(shape, 2, H100["bytes"]), 4) == ms
 
 
 class TestDeltaErr:
@@ -308,28 +330,37 @@ class TestModelPaths:
         assert counts(ViTConfig.vit_b16()) == (24, 12, 12)
         assert counts(ViTConfig.vit_b16(), train=False) == (12, 0, 0)
         assert counts(MoEConfig()) == (8, 4, 4)
+        # The qkv split: once a layer in GPT's and MoE's forward (again in
+        # remat's recompute), once in the backward; none in llama or ViT.
+        got = cs.expected_launches(12, True)
+        assert (got["qkv_rope_fwd"], got["qkv_rope_bwd"]) == (24, 12)
+        got = cs.expected_launches(12, False, train=False)
+        assert (got["qkv_rope_fwd"], got["qkv_rope_bwd"]) == (12, 0)
+        got = cs.expected_launches(12, True, qkv=False)
+        assert (got["qkv_rope_fwd"], got["qkv_rope_bwd"]) == (0, 0)
 
-    @pytest.mark.parametrize("family,remat,train", [
-        ("gpt", True, True), ("gpt", False, True), ("llama", True, True),
-        ("llama", False, True), ("vit", True, True), ("vit", False, False),
-        ("moe", True, True)])
-    def test_norm_forwards_per_step_match_the_model(self, monkeypatch,
-                                                     family, remat, train):
-        # The plain norm (the CPU path) is called once for each forward
-        # the kernel would run on the card: a tiny model's loss and its
-        # backward (a classifier's forward) counts expected_launches'.
+    FAMILY_RUNS = [("gpt", True, True), ("gpt", False, True),
+                   ("llama", True, True), ("llama", False, True),
+                   ("vit", True, True), ("vit", False, False),
+                   ("moe", True, True)]
+
+    @staticmethod
+    def _plain_calls(monkeypatch, fn_name, family, remat, train):
+        """How often the plain ``ops.layers.<fn_name>`` (the CPU path of a
+        kernel) runs in a tiny model's loss and its backward (or a
+        classifier's forward), and the config."""
         from ray_tpu_torch import models
         from ray_tpu_torch.models.convert import tree_leaves
         from ray_tpu_torch.ops import layers
 
         calls = []
-        plain = layers._rms_norm
+        plain = getattr(layers, fn_name)
 
         def counted(*args):
             calls.append(1)
             return plain(*args)
 
-        monkeypatch.setattr(layers, "_rms_norm", counted)
+        monkeypatch.setattr(layers, fn_name, counted)
         cfg_cls = {"gpt": models.GPTConfig, "llama": models.LlamaConfig,
                    "vit": models.ViTConfig, "moe": models.MoEConfig}[family]
         cfg = dataclasses.replace(cfg_cls.tiny(), remat=remat)
@@ -351,10 +382,33 @@ class TestModelPaths:
                 loss.backward()
             else:
                 models.vit_forward(params, batch[0], cfg)
+        return len(calls), cfg
+
+    @pytest.mark.parametrize("family,remat,train", FAMILY_RUNS)
+    def test_norm_forwards_per_step_match_the_model(self, monkeypatch,
+                                                     family, remat, train):
+        # The plain norm (the CPU path) is called once for each forward
+        # the kernel would run on the card: a tiny model's loss and its
+        # backward (a classifier's forward) counts expected_launches'.
+        calls, cfg = self._plain_calls(monkeypatch, "_rms_norm", family,
+                                       remat, train)
         want = cs.expected_launches(cfg.n_layers, remat, train)
-        assert len(calls) == want["rms_norm_fwd"]
+        assert calls == want["rms_norm_fwd"]
         assert want["rms_norm_bwd"] == want["rms_norm_dw"] == \
             (2 * cfg.n_layers + 1 if train else 0)
+
+    @pytest.mark.parametrize("family,remat,train", FAMILY_RUNS)
+    def test_qkv_split_forwards_per_step_match_the_model(
+            self, monkeypatch, family, remat, train):
+        # The plain qkv split likewise: GPT's and MoE's blocks run it once
+        # each (again in remat's recompute), llama's and ViT's never.
+        calls, cfg = self._plain_calls(monkeypatch, "_qkv_heads", family,
+                                       remat, train)
+        qkv = family in ("gpt", "moe")
+        want = cs.expected_launches(cfg.n_layers, remat, train, qkv=qkv)
+        assert calls == want["qkv_rope_fwd"]
+        assert want["qkv_rope_bwd"] == (cfg.n_layers if train and qkv
+                                        else 0)
 
     @pytest.mark.parametrize("preset", ["tpu_bench", "tiny"])
     def test_llama_param_count_matches_the_params(self, preset):
@@ -539,7 +593,8 @@ class TestTrainDpPhase:
         assert cs.state_digest(loaded["params"]) == cs.state_digest(params)
 
     LAUNCHES = {"flash_fwd": 120, "flash_bwd_dq": 60, "flash_bwd_dkv": 60,
-                "rms_norm_fwd": 245, "rms_norm_bwd": 125, "rms_norm_dw": 125}
+                "rms_norm_fwd": 245, "rms_norm_bwd": 125, "rms_norm_dw": 125,
+                "qkv_rope_fwd": 120, "qkv_rope_bwd": 60}
 
     def _report(self, world=1, **rank_changes):
         ranks = [{"cuda_visible_devices": str(r), "gpu_ids": [r],
@@ -606,7 +661,8 @@ class TestTrainDpPhase:
         got = cs.train_dp_checks(self._report(), self.REFERENCE, 3, 5)
         assert got["expected_launches"] == {
             "flash_fwd": 120, "flash_bwd_dq": 60, "flash_bwd_dkv": 60,
-            "rms_norm_fwd": 245, "rms_norm_bwd": 125, "rms_norm_dw": 125}
+            "rms_norm_fwd": 245, "rms_norm_bwd": 125, "rms_norm_dw": 125,
+            "qkv_rope_fwd": 120, "qkv_rope_bwd": 60}
         # the band is no looser than train_vs_cpu's bf16 loss band
         bf16 = dict((d, t) for d, _, t in cs.VS_CPU_RUNS)["bfloat16"]
         assert cs.TOL_TRAIN_DP_LOSS <= bf16["loss"]
@@ -638,7 +694,8 @@ class TestTrainFeedPhase:
         assert round(n * cfg.image_size ** 2 * cfg.channels * 4 / 1e6) == 231
 
     STEP = {"flash_fwd": 24, "flash_bwd_dq": 12, "flash_bwd_dkv": 12,
-            "rms_norm_fwd": 49, "rms_norm_bwd": 25, "rms_norm_dw": 25}
+            "rms_norm_fwd": 49, "rms_norm_bwd": 25, "rms_norm_dw": 25,
+            "qkv_rope_fwd": 0, "qkv_rope_bwd": 0}
     REFERENCE = [7.1, 7.0, 6.9, 6.8, 6.7, 6.6]
 
     def _report(self, **changes):
@@ -658,7 +715,8 @@ class TestTrainFeedPhase:
         assert all(got["checks"].values()), got
         assert got["expected_launches"] == {
             "flash_fwd": 120, "flash_bwd_dq": 60, "flash_bwd_dkv": 60,
-            "rms_norm_fwd": 245, "rms_norm_bwd": 125, "rms_norm_dw": 125}
+            "rms_norm_fwd": 245, "rms_norm_bwd": 125, "rms_norm_dw": 125,
+            "qkv_rope_fwd": 0, "qkv_rope_bwd": 0}
 
     @pytest.mark.parametrize("change,failed", [
         ({"pid": 3}, "other_process"),
@@ -736,9 +794,10 @@ class TestDagFusedPhase:
         assert torch.equal(fused(tokens), want) and fused.graphs == {}
 
     def _rows(self):
-        step = {"flash_fwd": 12, "rms_norm_fwd": 25}
+        step = {"flash_fwd": 12, "rms_norm_fwd": 25, "qkv_rope_fwd": 12}
         launches = {"flash_fwd": 96, "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
-                    "rms_norm_fwd": 200, "rms_norm_bwd": 0, "rms_norm_dw": 0}
+                    "rms_norm_fwd": 200, "rms_norm_bwd": 0, "rms_norm_dw": 0,
+                    "qkv_rope_fwd": 96, "qkv_rope_bwd": 0}
         return [
             {"batch": 16, "seq": 1024, "steps": 8, "graphs": 1,
              "per_replay_launches": dict(step), "profiled_k1": 12,
@@ -828,7 +887,8 @@ class TestTraceSummary:
         got = cs.trace_summary(str(path))
         assert got["kernels"] == {"flash_fwd": 2, "flash_bwd_dq": 1,
                                   "flash_bwd_dkv": 1, "rms_norm_fwd": 0,
-                                  "rms_norm_bwd": 1, "rms_norm_dw": 0}
+                                  "rms_norm_bwd": 1, "rms_norm_dw": 0,
+                                  "qkv_rope_fwd": 0, "qkv_rope_bwd": 0}
         assert got["gemm_launches"] == 1
         assert got["htod_copies"] == 1 and got["htod_bytes"] == 1000
         assert got["htod_ms"] == pytest.approx(0.02)
@@ -863,25 +923,30 @@ class TestParallelPhase:
     the checks over the ranks' rows."""
 
     def test_per_rank_launch_expectations(self):
-        # tp and fsdp run every layer's attention and norms on each rank
-        # (half the heads or half the rows): the remat step's 24/12/12
-        # and 49/25/25 (25 norms, the blocks' 24 recomputed), 3 steps.
+        # tp and fsdp run every layer's attention, norms and qkv split on
+        # each rank (half the heads or half the rows): the remat step's
+        # 24/12/12, 49/25/25 (25 norms, the blocks' 24 recomputed) and
+        # 24/12, 3 steps.
         want = {"flash_fwd": 72, "flash_bwd_dq": 36, "flash_bwd_dkv": 36,
-                "rms_norm_fwd": 147, "rms_norm_bwd": 75, "rms_norm_dw": 75}
+                "rms_norm_fwd": 147, "rms_norm_bwd": 75, "rms_norm_dw": 75,
+                "qkv_rope_fwd": 72, "qkv_rope_bwd": 36}
         assert cs.parallel_expected_launches("tp") == want
         assert cs.parallel_expected_launches("fsdp") == want
         assert cs.parallel_expected_launches("ulysses") == {
             "flash_fwd": 1, "flash_bwd_dq": 1, "flash_bwd_dkv": 1,
-            "rms_norm_fwd": 0, "rms_norm_bwd": 0, "rms_norm_dw": 0}
-        # 6 blocks a stage (two norms each, no final norm) x 4
-        # microbatches; 1F1B runs each stage's forward again for its
-        # backward.
+            "rms_norm_fwd": 0, "rms_norm_bwd": 0, "rms_norm_dw": 0,
+            "qkv_rope_fwd": 0, "qkv_rope_bwd": 0}
+        # 6 blocks a stage (two norms and one qkv split each, no final
+        # norm) x 4 microbatches; 1F1B runs each stage's forward again for
+        # its backward.
         assert cs.parallel_expected_launches("gpipe") == {
             "flash_fwd": 24, "flash_bwd_dq": 24, "flash_bwd_dkv": 24,
-            "rms_norm_fwd": 48, "rms_norm_bwd": 48, "rms_norm_dw": 48}
+            "rms_norm_fwd": 48, "rms_norm_bwd": 48, "rms_norm_dw": 48,
+            "qkv_rope_fwd": 24, "qkv_rope_bwd": 24}
         assert cs.parallel_expected_launches("1f1b") == {
             "flash_fwd": 48, "flash_bwd_dq": 24, "flash_bwd_dkv": 24,
-            "rms_norm_fwd": 96, "rms_norm_bwd": 48, "rms_norm_dw": 48}
+            "rms_norm_fwd": 96, "rms_norm_bwd": 48, "rms_norm_dw": 48,
+            "qkv_rope_fwd": 48, "qkv_rope_bwd": 24}
 
     @pytest.fixture(scope="class")
     def pool(self):
@@ -1085,17 +1150,21 @@ class TestParallelPhase:
     def test_family_launch_expectations(self):
         # Every layer's attention and 2 L + 1 norms on each rank, 3
         # steps: llama's tpu_bench without remat (16 layers), ViT-B/16
-        # with (12), the MoE decoder with (4).
+        # with (12), the MoE decoder with (4), which alone splits a fused
+        # qkv product with qkv_heads.
         assert cs.parallel_expected_launches("llama_tp") == {
             "flash_fwd": 48, "flash_bwd_dq": 48, "flash_bwd_dkv": 48,
-            "rms_norm_fwd": 99, "rms_norm_bwd": 99, "rms_norm_dw": 99}
+            "rms_norm_fwd": 99, "rms_norm_bwd": 99, "rms_norm_dw": 99,
+            "qkv_rope_fwd": 0, "qkv_rope_bwd": 0}
         assert cs.parallel_expected_launches("vit_tp") == {
             "flash_fwd": 72, "flash_bwd_dq": 36, "flash_bwd_dkv": 36,
-            "rms_norm_fwd": 147, "rms_norm_bwd": 75, "rms_norm_dw": 75}
+            "rms_norm_fwd": 147, "rms_norm_bwd": 75, "rms_norm_dw": 75,
+            "qkv_rope_fwd": 0, "qkv_rope_bwd": 0}
         for path in ("moe_tp", "moe_ep"):
             assert cs.parallel_expected_launches(path) == {
                 "flash_fwd": 24, "flash_bwd_dq": 12, "flash_bwd_dkv": 12,
-                "rms_norm_fwd": 51, "rms_norm_bwd": 27, "rms_norm_dw": 27}
+                "rms_norm_fwd": 51, "rms_norm_bwd": 27, "rms_norm_dw": 27,
+                "qkv_rope_fwd": 24, "qkv_rope_bwd": 12}
 
     def test_family_bytes_at_full_width(self):
         # llama tpu_bench at B=4, S=2048 (no remat): 4 [b, s, d] bf16
@@ -1654,10 +1723,12 @@ class TestMultinodePhase:
         "pool_actor": {"pid": 300, "node": "d" * 32, "pgid": 200,
                        "flash_fwd": 96, "flash_bwd_dq": 0,
                        "flash_bwd_dkv": 0, "rms_norm_fwd": 200,
-                       "rms_norm_bwd": 0, "rms_norm_dw": 0},
+                       "rms_norm_bwd": 0, "rms_norm_dw": 0,
+                       "qkv_rope_fwd": 96, "qkv_rope_bwd": 0},
         "driver_launches": {"flash_fwd": 0, "flash_bwd_dq": 0,
                             "flash_bwd_dkv": 0, "rms_norm_fwd": 0,
-                            "rms_norm_bwd": 0, "rms_norm_dw": 0},
+                            "rms_norm_bwd": 0, "rms_norm_dw": 0,
+                            "qkv_rope_fwd": 0, "qkv_rope_bwd": 0},
         "rows": 16, "equal_rows": 16,
         "tensor": {"node": "d" * 32, "device": "cpu",
                    "dtype": "torch.bfloat16", "equal": True,
@@ -1759,7 +1830,8 @@ def _cli_client_report():
     """A cli_client report as the card should give it."""
     call = {"launches": {"flash_fwd": 96, "flash_bwd_dq": 0,
                          "flash_bwd_dkv": 0, "rms_norm_fwd": 200,
-                         "rms_norm_bwd": 0, "rms_norm_dw": 0},
+                         "rms_norm_bwd": 0, "rms_norm_dw": 0,
+                         "qkv_rope_fwd": 96, "qkv_rope_bwd": 0},
             "pid": 253, "pgid": 228, "node": "n" * 32,
             "cuda_visible_devices": "0", "rows": 16, "equal_rows": 16}
     row = {"max_norm_err": 3.4e-3, "finite": True, "pid": 289,
@@ -1914,7 +1986,8 @@ def _libraries_report():
                    "gpu_ids": [0], "device_count": 1,
                    "launches": {"flash_fwd": 24, "flash_bwd_dq": 12,
                                 "flash_bwd_dkv": 12, "rms_norm_fwd": 49,
-                                "rms_norm_bwd": 25, "rms_norm_dw": 25}}
+                                "rms_norm_bwd": 25, "rms_norm_dw": 25,
+                                "qkv_rope_fwd": 24, "qkv_rope_bwd": 12}}
             if step == steps[0]:
                 row.update(cold_start_s=8.0, init_s=6.0,
                            process_age_at_entry_s=1.0,
@@ -2083,7 +2156,9 @@ class TestLibrariesPhase:
                                          "flash_bwd_dkv": 12 * 15,
                                          "rms_norm_fwd": 49 * 15,
                                          "rms_norm_bwd": 25 * 15,
-                                         "rms_norm_dw": 25 * 15}
+                                         "rms_norm_dw": 25 * 15,
+                                         "qkv_rope_fwd": 24 * 15,
+                                         "qkv_rope_bwd": 12 * 15}
         assert cs.sum_launches([]) == {}
 
     def test_trial_rows_and_summary(self, tmp_path):

@@ -191,6 +191,88 @@ class TestRMSNorm:
         assert _grad_err(dw, dw_j) <= 1e-5
 
 
+def _old_qkv_chain(qkv, head_dim):
+    """The GPT and MoE blocks' split before qkv_heads: split, reshape,
+    transpose, rope on q and k, .contiguous() on v."""
+    b, s, _ = qkv.shape
+    q, k, v = qkv.split(qkv.shape[-1] // 3, dim=-1)
+    h = q.shape[-1] // head_dim
+    q = tlayers.rope(q.reshape(b, s, h, head_dim).transpose(1, 2))
+    k = tlayers.rope(k.reshape(b, s, h, head_dim).transpose(1, 2))
+    return q, k, v.reshape(b, s, h, head_dim).transpose(1, 2).contiguous()
+
+
+def _qkv_kernel_fwd(qkv, head_dim, cos, sin):
+    """qkv_rope_fwd's arithmetic in plain torch, from the tables it is
+    given: x1 cos - x2 sin and x2 cos + x1 sin in f32, each product
+    rounded, then one rounding to the dtype."""
+    b, s, width = qkv.shape
+    heads = qkv.reshape(b, s, 3, width // (3 * head_dim), head_dim)
+
+    def rotate(x):
+        x1, x2 = x.float().chunk(2, dim=-1)
+        return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin],
+                         dim=-1).to(x.dtype)
+
+    q, k, v = (heads[:, :, i].transpose(1, 2) for i in range(3))
+    return rotate(q), rotate(k), v.contiguous()
+
+
+class TestQKVHeads:
+    """``qkv_heads`` held to the chain it replaces in the GPT and MoE
+    blocks, bit for bit, forward and autograd: its plain path (a CPU
+    tensor's), and ``_QKVHeads`` (the CUDA path) run on CPU tensors with
+    its kernels replaced by their arithmetic in plain torch
+    (``qkv_heads_bwd_reference`` for the backward) on the cached rope
+    tables. The JAX parity of that chain is held by the GPT and MoE
+    model tests."""
+
+    # (batch, seq, heads, head_dim): the tiny GPT config's 4 heads of 16,
+    # a tp=2 rank's 2 of them, and head dims 64 and 128.
+    SHAPES = [(2, 12, 4, 16), (2, 12, 2, 16), (2, 10, 3, 64), (1, 9, 2, 128)]
+    CASES = [(shape, dtype) for shape in SHAPES
+             for dtype in (torch.float32, torch.bfloat16)]
+
+    @pytest.mark.parametrize("shape,dtype", CASES)
+    def test_paths_match_the_chain_bit_for_bit(self, monkeypatch, shape,
+                                               dtype):
+        b, s, h, d = shape
+        rng = np.random.default_rng(sum(shape))
+        qkv = torch.from_numpy(_randn(rng, b, s, 3 * h * d)).to(dtype)
+        grads = [torch.from_numpy(_randn(rng, b, h, s, d)).to(dtype)
+                 for _ in range(3)]
+
+        def run(split):
+            x = qkv.clone().requires_grad_()
+            out = split(x, d)
+            dx, = torch.autograd.grad(out, x, grads)
+            return [t.detach() for t in out], dx
+
+        want, dwant = run(_old_qkv_chain)
+        tables = tlayers._rope_tables(s, d, qkv.device)
+        seen = []
+
+        def fwd(x, head_dim, cos, sin):
+            seen.append((cos, sin))
+            return _qkv_kernel_fwd(x, head_dim, cos, sin)
+
+        monkeypatch.setattr(_kernels, "qkv_rope_fwd", fwd)
+        monkeypatch.setattr(_kernels, "qkv_rope_bwd",
+                            tlayers.qkv_heads_bwd_reference)
+        for split in (tlayers.qkv_heads, tlayers._QKVHeads.apply):
+            got, dgot = run(split)
+            for t, w in zip(got, want):
+                assert t.dtype == dtype and t.shape == (b, h, s, d)
+                assert t.is_contiguous() and torch.equal(t, w)
+            assert dgot.dtype == dtype and torch.equal(dgot, dwant)
+        # The Function's forward read the cached tables, made once.
+        assert len(seen) == 1 and all(
+            a is t for a, t in zip(seen[0], tables))
+        assert tlayers._rope_tables(s, d, qkv.device)[0] is tables[0]
+        assert torch.equal(tlayers.qkv_heads_bwd_reference(*grads, *tables),
+                           dwant)
+
+
 class TestAttentionReference:
     @pytest.mark.parametrize("causal", [True, False])
     @pytest.mark.parametrize("seq_k", [12, 20])
@@ -491,11 +573,42 @@ class TestKernelWrapper:
         with pytest.raises(ValueError, match=match):
             _kernels.rms_norm_fwd(x, w, 1e-6)
 
+    @pytest.mark.parametrize("name", ["qkv_rope_fwd", "qkv_rope_bwd"])
+    def test_qkv_cpu_tensors_are_refused(self, name):
+        tables = (torch.zeros(4, 8), torch.zeros(4, 8))
+        heads = torch.zeros(1, 2, 4, 16)
+        args = {"qkv_rope_fwd": (torch.zeros(1, 4, 96), 16, *tables),
+                "qkv_rope_bwd": (heads, heads, heads, *tables)}[name]
+        with pytest.raises(ValueError, match="CUDA"):
+            getattr(_kernels, name)(*args)
+
+    @pytest.mark.parametrize("qkv,head_dim,match", [
+        (torch.zeros(1, 4, 96, dtype=torch.float16), 16, "float32"),
+        (torch.zeros(1, 4, 24), 8, "multiple of 16"),
+        (torch.zeros(1, 4, 3 * 272), 272, "multiple of 16"),
+        (torch.zeros(1, 4, 80), 16, r"\[B, S, 3 h D\]"),
+        (torch.zeros(4, 96), 16, r"\[B, S, 3 h D\]"),
+    ])
+    def test_qkv_unsupported_input_is_refused(self, qkv, head_dim, match):
+        # The dtype and shape checks come before the device's, so they
+        # refuse these on the CPU as they would on the card.
+        d = max(head_dim // 2, 1)
+        with pytest.raises(ValueError, match=match):
+            _kernels.qkv_rope_fwd(qkv, head_dim, torch.zeros(4, d),
+                                  torch.zeros(4, d))
+
+    def test_qkv_bwd_gradients_of_one_shape(self):
+        heads = torch.zeros(1, 2, 4, 16)
+        with pytest.raises(ValueError, match="one shape"):
+            _kernels.qkv_rope_bwd(heads, heads, torch.zeros(1, 2, 5, 16),
+                                  torch.zeros(4, 8), torch.zeros(4, 8))
+
     def test_nothing_built_or_counted_on_import(self):
         assert _kernels._libs == {} and _kernels._fns == {}
         assert _kernels.LAUNCHES == {
             "flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
-            "rms_norm_fwd": 0, "rms_norm_bwd": 0, "rms_norm_dw": 0}
+            "rms_norm_fwd": 0, "rms_norm_bwd": 0, "rms_norm_dw": 0,
+            "qkv_rope_fwd": 0, "qkv_rope_bwd": 0}
         assert set(_kernels._SIGNATURES) == set(_kernels.LAUNCHES)
 
     # source -> what its head note must say it replaces: TPU kernels of
@@ -506,6 +619,7 @@ class TestKernelWrapper:
         "flash_bwd.cu": ["Replaces: ray_tpu/ops/attention.py::_dq_kernel",
                          "Replaces: ray_tpu/ops/attention.py::_dkv_kernel"],
         "rms_norm.cu": ["Replaces: none", "ray_tpu/ops/layers.py::rms_norm"],
+        "qkv_rope.cu": ["Replaces: none", "ray_tpu/ops/layers.py::rope"],
     }
 
     def test_sources_name_the_tpu_kernel_they_replace(self):

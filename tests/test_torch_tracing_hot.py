@@ -274,6 +274,10 @@ def test_train_step_spans_nest():
             "model.loss", "model.norm", "model.rope",
             "model.act"} <= set(ranges)
     assert ranges["model.loss"]["backward_ms"] > 0
+    # qkv_heads' ranges of the forward (not those of remat's recompute)
+    # stamp a backward once all of q, k and v's gradients are in.
+    assert any(r["backward_ms"] for r in tracing.local_records()
+               if r["kind"] == "range" and r["name"] == "model.rope")
     assert ranges["train.optimizer"]["backward_ms"] is None
     spans = {s["name"]: s for s in _spans()}
     for phase in ("train.forward", "train.backward", "train.optimizer"):
